@@ -10,18 +10,32 @@ non-zero):
    (both set False for the float32 phases);
 2. build: every CUDA kernel of ``realtime_yukarin_tpu_torch/csrc`` with
    nvcc (one process per source, started together), with ptxas' report;
-3. kernels: each kernel against its plain PyTorch version on the card at
-   R = 20 rows (one streaming step) and R = 1280 (64 streams' rows), with
-   CUDA-event times of the kernel, the plain version and the library
-   yardstick, beside the bound reckoned from the shapes;
+3. kernels: each forward kernel against its plain PyTorch version on the
+   card at R = 20 rows (one streaming step), R = 100 (one utterance of a
+   training batch: what ``make_batch``'s analysis gives the power spectrum
+   and the envelope cepstrum), R = 800 (the batch: what training's renders
+   give the bank) and R = 1280 (64 streams' rows), and the harmonic-bank
+   backward at R = 100 and R = 800, with CUDA-event times of the kernel,
+   the plain version and the library yardstick, beside the bound reckoned
+   from the shapes;
 4. main path: ``VoiceChangerStream(device="cuda")`` at the default Config
    (full width, bf16 models, seeded perturbed weights) on 3 s of a seeded
    voiced/unvoiced signal in 100 ms chunks, then ``flush()``; checks the
-   output and that every kernel's launch count reached the step count;
+   output and that every forward kernel's launch count reached the step
+   count;
 5. parity: the same input with ``compute_dtype="float32"`` through the
    port on CUDA (the kernels) and on the CPU (the plain versions);
-6. the kernels line: one JSON object with every kernel's numbers;
-7. last line: ``{"ok": true, "device": {...}}``.
+6. training: the default Config at full width in float32, 3 steps of the
+   joint train step then 3 of the GAN step, each on a fresh ``make_batch``
+   of 8 x 100 frames built on the card (what ``cli.train --synthetic``
+   does per step); checks finite losses, that every subtree moved and
+   that the backward kernel ran at least once per step;
+7. training parity: one step's losses and gradients on CUDA (the kernels,
+   cuDNN with TF32 off) and on the CPU (the plain versions), same weights,
+   same batch of 2; the wave decoder's leaves are held at the CUDA step's
+   own loss cotangent (see PARITY_WAVE_TOL);
+8. the kernels line: one JSON object with every kernel's numbers;
+9. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is not available or the port's
 package is missing.  Imports nothing of JAX.
@@ -43,13 +57,42 @@ PEAK_HBM_BYTES = 3.35e12
 SEED = 0
 SECONDS = 3.0
 PERTURB = 1e-3   # scale of the seeded noise added to every weight
+# error / peak of the plain version's output; the harmonic bank's (both
+# directions) is the Chebyshev recurrence against sin/cos(h * phi) at
+# h * phi ~ 5000 rad, where float32 phase rounding is ~5e-4 rad
 TOL = {"harmonic_bank": 1e-3, "power_spectrum": 1e-4,
-       "envelope_cepstrum": 1e-4}
+       "envelope_cepstrum": 1e-4, "harmonic_bank_bwd": 1e-3}
 REPLACES = {
     "harmonic_bank": "realtime_yukarin_tpu/ops/pallas_synth.py:33",
     "power_spectrum": "realtime_yukarin_tpu/ops/pallas_analysis.py:100",
     "envelope_cepstrum": "realtime_yukarin_tpu/ops/pallas_analysis.py:169",
+    "harmonic_bank_bwd": "realtime_yukarin_tpu/ops/pallas_synth.py:101",
 }
+TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 100, 3
+# Forward kernels' row counts in phase 3: streaming step, one utterance of
+# a training batch (the analysis), the batch (the bank), 64 streams
+KERNEL_ROWS = (20, TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES, 1280)
+# CUDA vs CPU, one training step (float32 on both; cuBLAS/cuFFT/the kernels
+# vs MKL/pocketfft/the plain versions sum in other orders): the losses
+# relative; stage 1, stage 2 and the DDSP vocoder's gradients as a fraction
+# of each subtree's peak.
+PARITY_LOSS_TOL = 1e-4
+PARITY_GRAD_TOL = {"stage1": 1e-4, "stage2": 1e-4, "vocoder": 2e-3}
+# The wave decoder's step gradient is J^T c: J its render's Jacobian, c the
+# cotangent d(0.5 * wave STFT loss) / d render.  c weighs an STFT bin by
+# 1 / (|X| + 1e-6), and the render's DC and Nyquist bins sit near float32
+# rounding, so c is not determined by float32 arithmetic on either device
+# (tools/torch_wave_grad_conditioning.py: every leaf, the cotangent too, is
+# as far from a float64 witness as the whole subtree).  Each leaf is held
+# at the CUDA step's own c instead: the CUDA step gradient against the CPU
+# render's J^T c, as a fraction of the leaf's peak.  frac_ratios is the
+# least well determined leaf of J^T c (its terms carry the unwrapped phase
+# advance, up to 578 rad): at the float64 cotangent its float32 value lies
+# 3.8e-4 (CPU) and 5.5e-4 (CUDA) of its peak from float64's, every other
+# leaf's within 2.5e-4; at the CUDA step's cotangent CUDA and CPU differ by
+# 1.7e-3 (the same tool and this script on an H100 80GB HBM3; PERF.md).
+PARITY_WAVE_TOL = {"frac_ratios": 1e-2}
+PARITY_WAVE_LEAF_TOL = 1e-3
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -131,6 +174,28 @@ def kernel_cases(R: int, cfg, dev, rng):
     }
 
 
+def bwd_case(R: int, cfg, dev, rng):
+    """(kernel call, plain call, bytes, flops) of the harmonic-bank backward
+    on seeded inputs at training's widths with R rows."""
+    import torch
+    from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    H, hop = cfg.dsp.num_harmonics, cfg.dsp.hop
+    al, ar = t(rng.uniform(0, 0.1, (R, H))), t(rng.uniform(0, 0.1, (R, H)))
+    phi = t(rng.uniform(0, 2 * np.pi, (R, 1))
+            + np.cumsum(rng.uniform(0.02, 0.2, (R, hop)), axis=1))
+    frac = t((np.arange(hop) + 1.0) / hop)
+    g = t(rng.standard_normal((R, hop)) * 0.1)
+    return (lambda: hb.harmonic_bank_bwd(al, ar, phi, frac, g),
+            lambda: hb.harmonic_bank_bwd_plain(al, ar, phi, frac, g),
+            4 * (4 * R * H + 4 * R * hop + hop),
+            15.0 * R * hop * H)
+
+
 def test_signal(seconds: float, fs: int, seed: int) -> np.ndarray:
     """Seeded voiced / unvoiced alternation over a noise floor: a vibrato
     harmonic stack to 0.9 of Nyquist at -6 dB per octave with AM, bursts
@@ -166,6 +231,176 @@ def seeded_params(cfg):
             for p in net.parameters():
                 p.add_(PERTURB * torch.randn(p.shape, generator=gen))
     return params
+
+
+def perturbed_training_params(cfg):
+    """The port's init_params with every leaf of every network perturbed
+    by seeded noise, so gradients reach every layer through the heads."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.voice_changer import (NETS,
+                                                                 init_params)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    params = init_params(cfg, gen)
+    with torch.no_grad():
+        for k in NETS:
+            for p in params[k].parameters():
+                p.add_(PERTURB * torch.randn(p.shape, generator=gen))
+    return params
+
+
+def snapshot(params) -> dict:
+    """{subtree: host copies of its tensors}."""
+    from realtime_yukarin_tpu_torch.models.voice_changer import param_leaves
+    return {k: [p.detach().cpu().clone() for p in ps]
+            for k, ps in param_leaves(params).items()}
+
+
+def moved(before: dict, after: dict) -> dict:
+    """{subtree: whether any of its tensors changed}."""
+    return {k: any(not bool((a == b).all()) for a, b in zip(ps, after[k]))
+            for k, ps in before.items()}
+
+
+def train_phase(cfg, dev) -> dict:
+    """TRAIN_STEPS joint steps, then TRAIN_STEPS GAN steps, each on a fresh
+    batch made on ``dev``.  Returns {step wall times, steps}."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.discriminator import (
+        init_discriminator)
+    from realtime_yukarin_tpu_torch.models.voice_changer import init_params
+    from realtime_yukarin_tpu_torch.training import train_step as ts
+    from realtime_yukarin_tpu_torch.training.data import make_batch
+
+    seconds = TRAIN_FRAMES * cfg.dsp.hop / cfg.dsp.sample_rate
+    params = init_params(cfg, torch.Generator().manual_seed(SEED))
+    disc = init_discriminator(cfg.super_resolution, cfg.dsp,
+                              torch.Generator().manual_seed(SEED + 1))
+    runs = (("joint", ts.init_train_state(params, dev),
+             ts.make_train_step(cfg)),
+            ("gan", ts.init_gan_train_state(params, disc, dev),
+             ts.make_gan_train_step(cfg)))
+    walls = {}
+    for name, state, step_fn in runs:
+        before = snapshot(state.params)
+        if name == "gan":
+            before["discriminator"] = snapshot(
+                {"d": state.d_params})["d"]
+        walls[name] = []
+        for s in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            batch = make_batch(cfg, TRAIN_BATCH, seconds=seconds,
+                               seed=SEED + s, device=dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            m = {k: float(v) for k, v in m.items()}
+            walls[name].append((t1 - t0, t2 - t1))
+            print(f"[train] {name} step {s + 1}: "
+                  + " ".join(f"{k}={v:.5f}" for k, v in sorted(m.items()))
+                  + f" | make_batch {(t1 - t0) * 1e3:.1f} ms, step "
+                  f"{(t2 - t1) * 1e3:.1f} ms")
+            if not all(np.isfinite(v) for v in m.values()):
+                raise AssertionError(f"{name} step {s + 1}: non-finite "
+                                     f"losses {m}")
+        after = snapshot(state.params)
+        if name == "gan":
+            after["discriminator"] = snapshot({"d": state.d_params})["d"]
+        # f0_stats get zero gradient; their AdamW decay (lr 1e-4 x 1e-5)
+        # is below float32 resolution, as in the JAX package
+        did = moved(before, after)
+        print(f"[train] {name}: subtrees moved {did}")
+        stuck = [k for k, v in did.items() if not v and k != "f0_stats"]
+        if stuck:
+            raise AssertionError(f"{name}: subtrees did not move: {stuck}")
+    return {"walls": walls, "steps": 2 * TRAIN_STEPS}
+
+
+def wave_render(net, batch, cfg):
+    """(the wave decoder's render of ``batch``, the training step's term
+    that reads it: 0.5 * multi_resolution_stft against the real wave)."""
+    from realtime_yukarin_tpu_torch.models.vocoder_wave import (
+        waveform_vocode)
+    from realtime_yukarin_tpu_torch.training import losses
+    b = batch
+    wave, _ = waveform_vocode(net, b.f0_voc, b.env_voc, b.ap_voc, b.mc_voc,
+                              b.noise, cfg.vocoder_wave, cfg.dsp)
+    return wave, 0.5 * losses.multi_resolution_stft(wave, b.wave_voc)
+
+
+def grad_error(d: list, c: list) -> tuple[float, float, float]:
+    """(max |d - c| / max |c|, the peak, cosine of the flattened lists)."""
+    import torch
+    a = torch.cat([x.detach().cpu().flatten() for x in d]).double()
+    b = torch.cat([x.detach().flatten() for x in c]).double()
+    peak = float(b.abs().max())
+    err = float((a - b).abs().max())
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    return (err / peak if peak > 0 else err), peak, cos
+
+
+def train_parity(cfg, dev) -> dict:
+    """One step's losses and gradients on ``dev`` and on the CPU from the
+    same weights and batch; the wave decoder leaf by leaf.  Returns the
+    measured errors."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.voice_changer import (
+        params_trainable)
+    from realtime_yukarin_tpu_torch.training import train_step as ts
+    from realtime_yukarin_tpu_torch.training.data import make_batch
+
+    params = perturbed_training_params(cfg)
+    batch = make_batch(cfg, 2, seconds=TRAIN_FRAMES * cfg.dsp.hop
+                       / cfg.dsp.sample_rate, seed=SEED + 11, device="cpu")
+    p_c, p_d = params_trainable(params, "cpu"), params_trainable(params, dev)
+    m_c, g_c = ts.loss_and_grads(p_c, batch, cfg)
+    m_d, g_d = ts.loss_and_grads(p_d, batch.to(dev), cfg)
+    out = {"loss": max(abs(float(m_d[k]) - float(m_c[k]))
+                       / max(abs(float(m_c[k])), 1e-12) for k in m_c)}
+    print("[train-parity] losses cuda / cpu: " + ", ".join(
+        f"{k} {float(m_d[k]):.6f} / {float(m_c[k]):.6f}" for k in m_c))
+    fails = [] if out["loss"] <= PARITY_LOSS_TOL else ["losses"]
+    for k, tol in PARITY_GRAD_TOL.items():
+        rel, peak, cos = grad_error(g_d[k], g_c[k])
+        out[f"grad_{k}"] = rel
+        print(f"[train-parity] step gradient {k}: max_err/peak {rel:.3e} "
+              f"(peak {peak:.3e}, cosine {cos:.6f}), tol {tol:g}")
+        if rel > tol:
+            fails.append(k)
+    # f0_stats: zero on both, the loss does not read them
+    # the wave decoder: the CUDA step's cotangent replayed through the CPU
+    # render; the step gradient on CUDA is J_cuda^T c_cuda
+    wave_d, term_d = wave_render(p_d["vocoder_wave"], batch.to(dev), cfg)
+    c_d = torch.autograd.grad(term_d, wave_d)[0]
+    wave_c, term_c = wave_render(p_c["vocoder_wave"], batch, cfg)
+    c_c = torch.autograd.grad(term_c, wave_c, retain_graph=True)[0]
+    names, leaves = zip(*p_c["vocoder_wave"].named_parameters())
+    at_cd = torch.autograd.grad(wave_c, list(leaves),
+                                grad_outputs=c_d.cpu())
+    rel, peak, cos = grad_error([c_d], [c_c])
+    print(f"[train-parity] vocoder_wave loss cotangent d term / d render: "
+          f"max_err/peak {rel:.3e} (peak {peak:.3e}, cosine {cos:.6f}), "
+          f"not held (tools/torch_wave_grad_conditioning.py)")
+    out["wave_leaf"] = 0.0
+    for name, gd, gc, gx in zip(names, g_d["vocoder_wave"],
+                                g_c["vocoder_wave"], at_cd):
+        r_step, _, c_step = grad_error([gd], [gc])
+        r_leaf, peak, c_leaf = grad_error([gd], [gx])
+        tol = PARITY_WAVE_TOL.get(name, PARITY_WAVE_LEAF_TOL)
+        out["wave_leaf"] = max(out["wave_leaf"], r_leaf)
+        print(f"[train-parity] vocoder_wave {name}: step gradient cuda vs "
+              f"cpu {r_step:.3e} of the peak (cosine {c_step:.6f}); at the "
+              f"CUDA step's cotangent {r_leaf:.3e} (peak {peak:.3e}, cosine "
+              f"{c_leaf:.6f}), tol {tol:g}")
+        if r_leaf > tol:
+            fails.append(f"vocoder_wave {name}")
+    print(f"[train-parity] losses max rel err {out['loss']:.3e} (tol "
+          f"{PARITY_LOSS_TOL:g}); {'ok' if not fails else fails}")
+    if fails:
+        raise AssertionError(f"CUDA and CPU training steps disagree: "
+                             f"{fails}")
+    return out
 
 
 def run_stream(params, cfg, x, device):
@@ -210,7 +445,7 @@ def main() -> int:
     from realtime_yukarin_tpu_torch.ops import cuda
 
     # 1. device
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -218,7 +453,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"[device] {name} x{count} | torch {torch.__version__} cuda "
+    print(f"[device] {device_name} x{count} | torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     print(smi)
     print(f"[device] tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -239,7 +474,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     record = {}
-    for R in (20, 1280):
+    for R in KERNEL_ROWS:
         for kname, (kern, plain, lib, nbytes, nflops) in kernel_cases(
                 R, cfg, dev, rng).items():
             err_abs, err = abs_rel_err(kern(), plain())
@@ -261,6 +496,27 @@ def main() -> int:
                 record[kname] = dict(max_abs_err=err_abs, ms=ms,
                                      plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=lib_ms)
+    kname = "harmonic_bank_bwd"
+    for R in (TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES):
+        kern, plain, nbytes, nflops = bwd_case(R, cfg, dev, rng)
+        errs = [abs_rel_err(k, p) for k, p in zip(kern(), plain())]
+        torch.cuda.synchronize()
+        err_abs = max(e[0] for e in errs)
+        err = max(e[1] for e in errs)
+        ok = err <= TOL[kname]
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        b_ms, b_by = bound_ms(nbytes, nflops)
+        print(f"[kernel] {kname} R={R}: /peak d_aL {errs[0][1]:.3e} d_aR "
+              f"{errs[1][1]:.3e} d_phi {errs[2][1]:.3e} d_frac "
+              f"{errs[3][1]:.3e} (tol {TOL[kname]:g}) "
+              f"{'ok' if ok else 'FAIL'} | kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms, library n/a, bound {b_ms:.5f} ms "
+              f"({b_by})")
+        if not ok:
+            raise AssertionError(f"{kname} R={R}: error {err:.3e} above "
+                                 f"{TOL[kname]:g}")
+        record[kname] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
     # 4. the main path at full width, bf16 models
     params = seeded_params(cfg)
@@ -268,6 +524,8 @@ def main() -> int:
     cuda.reset_counts()
     y, secs, _, steps = run_stream(params, cfg, x, "cuda")
     launches = {k.name: k.launches for k in cuda.KERNELS}
+    stream_kernels = (cuda.HARMONIC_BANK, cuda.POWER_SPECTRUM,
+                      cuda.ENVELOPE_CEPSTRUM)
     rms = float(np.sqrt(np.mean(y ** 2)))
     chunk_s = cfg.streaming.chunk_samples(cfg.dsp) / cfg.dsp.sample_rate
     p50, p99 = (float(np.percentile(secs[1:], q)) for q in (50, 99))
@@ -280,9 +538,10 @@ def main() -> int:
     if y.shape[0] != x.shape[0] or not np.isfinite(y).all() or rms < 1e-3:
         raise AssertionError("main path output is wrong-sized, "
                              "non-finite or silent")
-    for k, n in launches.items():
-        if n < steps:
-            raise AssertionError(f"{k} launched {n} times in {steps} steps")
+    for k in stream_kernels:
+        if launches[k.name] < steps:
+            raise AssertionError(f"{k.name} launched {launches[k.name]} "
+                                 f"times in {steps} steps")
 
     # 5. parity: CUDA kernels vs the CPU plain versions, float32 models
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
@@ -296,13 +555,38 @@ def main() -> int:
     if perr > 2e-3 or not same_voicing:
         raise AssertionError("CUDA and CPU outputs disagree")
 
-    # 6. kernels line, 7. result line
+    # 6. training at full width, float32
+    cuda.reset_counts()
+    trained = train_phase(cfg, dev)
+    train_launches = {k.name: k.launches for k in cuda.KERNELS}
+    n_train = trained["steps"]
+    for objective, walls in trained["walls"].items():
+        tail = walls[1:]
+        print(f"[train] {objective}: step wall time (after the first) mean "
+              f"{np.mean([w[1] for w in tail]) * 1e3:.1f} ms, make_batch "
+              f"{np.mean([w[0] for w in tail]) * 1e3:.1f} ms (first step "
+              f"{walls[0][1] * 1e3:.1f} ms)")
+    print(f"[train] {n_train} steps, launches {train_launches}")
+    if train_launches["harmonic_bank_bwd"] < n_train:
+        raise AssertionError(f"harmonic_bank_bwd launched "
+                             f"{train_launches['harmonic_bank_bwd']} times "
+                             f"in {n_train} training steps")
+    missing = [k for k, n in train_launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the training path launched no {missing}")
+
+    # 7. training parity: CUDA vs CPU
+    train_parity(cfg, dev)
+
+    # 8. kernels line (launches: the streaming run's plus the training
+    # run's), 9. result line
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": REPLACES[k.name], "launches": launches[k.name],
+         "replaces": REPLACES[k.name],
+         "launches": launches[k.name] + train_launches[k.name],
          **record[k.name]} for k in cuda.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": device_name, "count": count}}))
     return 0
 
 

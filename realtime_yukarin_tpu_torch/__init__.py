@@ -2,14 +2,18 @@
 
 The JAX package beside it stays the reference.  This package carries the
 default streaming step (analysis -> stage 1 -> super-resolution -> DSP
-render) with the same module layout, so each file's counterpart has the
-same path under ``realtime_yukarin_tpu/``:
+render) and the joint training step, with the same module layout, so each
+file's counterpart has the same path under ``realtime_yukarin_tpu/``:
 
   dsp/        WORLD-role analysis and the harmonic+noise renderer on tensors
   ops/        DFT-as-matmul helpers and the hand-written CUDA kernels' wrappers
   csrc/       CUDA C++ sources of those kernels (built with nvcc at first use)
-  models/     stage-1 acoustic net and stage-2 super-resolution as nn.Modules
+  models/     stage 1, super-resolution, both neural vocoders and the
+              discriminator as nn.Modules
   streaming/  static chunk geometry, the carry, the step and the host stream
+  training/   losses, the joint and GAN train steps, synthetic batches,
+              checkpoints
+  cli/        ``python -m realtime_yukarin_tpu_torch.cli.train``
 
 It imports torch and never jax, flax or the JAX package.  Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors every

@@ -4,9 +4,10 @@
 A 1-D GLU/residual conv stack over time mapping source mel-cepstrum (+ F0)
 to a mel-cepstrum residual; the head is zero-initialised, so an untrained
 net is the identity mapping.  Public functions keep the JAX package's
-``[T, C]`` layout; the modules transpose to ``[1, C, T]`` only around
-``conv1d``.  Parameters stay float32 and are cast to the compute dtype at
-use, as flax does (``dtype=bfloat16`` on the default path).
+``[T, C]`` / ``[B, T, C]`` layout; the modules transpose to ``[B, C, T]``
+only around ``conv1d``.  Parameters stay float32 and are cast to the
+compute dtype at use, as flax does (``dtype=bfloat16`` on the default
+path); training runs them in float32.
 
 Streaming: every block carries its last (kernel-1) input frames across
 steps, so each layer computes exactly the Fc fresh frames per chunk (VALID
@@ -25,10 +26,13 @@ from realtime_yukarin_tpu_torch.config import AcousticModelConfig
 
 def conv1d_valid(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype,
                  padding: int = 0) -> torch.Tensor:
-    """[T, C_in] -> [T + 2*padding - (k-1), C_out]: input and kernel cast
-    to ``dtype`` before the conv, bias added in ``dtype`` (flax's order)."""
-    y = Fn.conv1d(x.T[None].to(dtype), conv.weight.to(dtype),
-                  padding=padding)[0].T
+    """[(B,) T, C_in] -> [(B,) T + 2*padding - (k-1), C_out]: input and
+    kernel cast to ``dtype`` before the conv, bias added in ``dtype``
+    (flax's order)."""
+    xt = x.transpose(-1, -2).to(dtype)
+    y = Fn.conv1d(xt if x.ndim == 3 else xt[None], conv.weight.to(dtype),
+                  padding=padding)
+    y = (y if x.ndim == 3 else y[0]).transpose(-1, -2)
     return y + conv.bias.to(dtype)
 
 
@@ -40,18 +44,20 @@ class GLUConvBlock(nn.Module):
 
     def forward(self, z_in: torch.Tensor, dtype: torch.dtype,
                 padding: int = 0) -> torch.Tensor:
-        """[T, H] -> [T + 2*padding - (k-1), H]: gated conv, 1x1
+        """[(B,) T, H] -> [(B,) T + 2*padding - (k-1), H]: gated conv, 1x1
         projection, residual at the centers."""
         k = self.conv.kernel_size[0]
         h = conv1d_valid(z_in, self.conv, dtype, padding)
         a, b = torch.chunk(h, 2, dim=-1)
         h = conv1d_valid(a * torch.sigmoid(b), self.proj, dtype)
         half = (k - 1) // 2 - padding
-        return z_in[half: z_in.shape[0] - half] + h
+        return z_in[..., half: z_in.shape[-2] - half, :] + h
 
 
 class AcousticNet(nn.Module):
-    """[T, D_in] -> mel-cepstrum residual [T, mc_dim] (float32)."""
+    """[(B,) T, D_in] -> mel-cepstrum residual [(B,) T, mc_dim] (float32)."""
+
+    ZERO_INIT = ("head",)
 
     def __init__(self, cfg: AcousticModelConfig, mc_dim: int):
         super().__init__()
@@ -91,6 +97,14 @@ def acoustic_inputs(mc: torch.Tensor, f0: torch.Tensor,
                             torch.zeros_like(f0))
         feats += [logf0[..., None], voiced[..., None]]
     return torch.cat(feats, dim=-1)
+
+
+def convert_mc(net: AcousticNet, mc: torch.Tensor, f0: torch.Tensor,
+               model_cfg: AcousticModelConfig, dtype=torch.float32
+               ) -> torch.Tensor:
+    """Apply stage 1 offline: mc' = mc + net(mc, f0) on [T, ...] or
+    [B, T, ...] (SAME zero padding at the window's edges)."""
+    return mc + net(acoustic_inputs(mc, f0, model_cfg), dtype)
 
 
 def convert_mc_streamed(net: AcousticNet, mc_new: torch.Tensor,

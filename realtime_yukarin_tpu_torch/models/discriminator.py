@@ -1,0 +1,81 @@
+"""Patch discriminator for adversarial stage-2 training (PyTorch port of
+``models/discriminator.py``).
+
+A dense frequency embedding (one [K] -> [hidden] product per frame), then
+stride-2 time convolutions, ending in one logit per time patch.  The input
+is the log-power envelope, the domain the SR net works in.  It exists only
+in training.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as Fn
+
+from realtime_yukarin_tpu_torch.config import DspConfig, SuperResolutionConfig
+from realtime_yukarin_tpu_torch.models.initializers import init_module
+
+
+def conv1d_same_strided(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+    """flax ``nn.Conv(padding="SAME", strides=s)`` on [B, T, C]: ceil(T/s)
+    outputs, the (k - 1 + ...) padding split with the smaller half first —
+    (1, 2) for k = 5, s = 2 and even T, (2, 2) for odd T."""
+    T = x.shape[-2]
+    k, s = conv.kernel_size[0], conv.stride[0]
+    out = -(-T // s)
+    total = max((out - 1) * s + k - T, 0)
+    xt = Fn.pad(x.transpose(-1, -2), (total // 2, total - total // 2))
+    return Fn.conv1d(xt, conv.weight, conv.bias, stride=s).transpose(-1, -2)
+
+
+class EnvelopeDiscriminator(nn.Module):
+    """[B, T, K] log-envelope -> [B, ceil(T / 2**num_down)] patch logits."""
+
+    ZERO_INIT = ()
+
+    def __init__(self, spec_bins: int, hidden: int = 256, num_down: int = 3,
+                 kernel_size: int = 5):
+        super().__init__()
+        self.freq_in = nn.Linear(spec_bins, hidden)
+        self.down = nn.ModuleList(
+            nn.Conv1d(hidden, hidden, kernel_size, stride=2)
+            for _ in range(num_down))
+        self.head = nn.Linear(hidden, 1)
+
+    def flax_layers(self) -> dict[str, nn.Module]:
+        """flax path -> layer, the names of ``flatten_params``."""
+        layers = {"freq_in": self.freq_in, "head": self.head}
+        for i, conv in enumerate(self.down):
+            layers[f"down_{i}"] = conv
+        return layers
+
+    def forward(self, logE: torch.Tensor) -> torch.Tensor:
+        h = Fn.leaky_relu(self.freq_in(logE.float()), 0.2)
+        for conv in self.down:
+            h = Fn.leaky_relu(conv1d_same_strided(h, conv), 0.2)
+        return self.head(h)[..., 0]
+
+
+def init_discriminator(sr_cfg: SuperResolutionConfig, dsp: DspConfig,
+                       generator: torch.Generator, hidden: int = 256
+                       ) -> EnvelopeDiscriminator:
+    """A freshly initialised discriminator (flax's initialisers; its head
+    is not zero-initialised).  ``sr_cfg`` is accepted for the JAX
+    package's signature."""
+    return init_module(EnvelopeDiscriminator(dsp.spec_bins, hidden),
+                       generator)
+
+
+# ---------------------------------------------------------------------------
+# Hinge-GAN losses
+# ---------------------------------------------------------------------------
+
+def d_hinge_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor
+                 ) -> torch.Tensor:
+    return (torch.mean(torch.relu(1.0 - real_logits))
+            + torch.mean(torch.relu(1.0 + fake_logits)))
+
+
+def g_hinge_loss(fake_logits: torch.Tensor) -> torch.Tensor:
+    return -torch.mean(fake_logits)

@@ -21,7 +21,9 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
 
 
 class SRNet(nn.Module):
-    """[T, K] log-power -> [T, K] refined log-power (residual)."""
+    """[(B,) T, K] log-power -> [(B,) T, K] refined log-power (residual)."""
+
+    ZERO_INIT = ("head",)
 
     def __init__(self, cfg: SuperResolutionConfig, spec_bins: int):
         super().__init__()
@@ -57,6 +59,6 @@ class SRNet(nn.Module):
 def refine_envelope(net: SRNet, env: torch.Tensor,
                     sr_cfg: SuperResolutionConfig, dsp_cfg: DspConfig,
                     dtype=torch.float32) -> torch.Tensor:
-    """Apply stage 2 in the power domain.  env: [T, K]."""
+    """Apply stage 2 in the power domain.  env: [T, K] or [B, T, K]."""
     logE = torch.log(torch.clamp(env, min=1e-12))
     return torch.exp(net(logE, dtype))

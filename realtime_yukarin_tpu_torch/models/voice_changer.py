@@ -1,12 +1,13 @@
-"""Parameters of both model stages and the F0 transform (PyTorch port of
-``models/voice_changer.py``).
+"""Parameters of the model stages, both neural vocoders and the F0 transform
+(PyTorch port of ``models/voice_changer.py``).
 
 The port's parameter set is a dict ``{"stage1": AcousticNet, "stage2":
-SRNet, "f0_stats": {src_mean, src_std, tgt_mean, tgt_std}}`` (0-d float32
-tensors).  Weights cross from the JAX package in its ``.npz`` layout —
-``flatten_params``' slash-joined flax paths such as
-``stage1/params/block_0/conv/kernel`` — through :func:`params_from_jax`,
-which is strict like ``unflatten_params``.
+SRNet, "vocoder": VocoderControlNet, "vocoder_wave": WaveDecoderNet,
+"f0_stats": {src_mean, src_std, tgt_mean, tgt_std}}`` (0-d float32
+tensors).  Weights cross to and from the JAX package in its ``.npz`` layout
+— ``flatten_params``' slash-joined flax paths such as
+``stage1/params/block_0/conv/kernel`` — through :func:`params_from_jax`
+(strict like ``unflatten_params``) and :func:`params_to_jax`.
 """
 
 from __future__ import annotations
@@ -20,57 +21,73 @@ import torch.nn as nn
 
 from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.models.acoustic import AcousticNet
+from realtime_yukarin_tpu_torch.models.initializers import init_module
 from realtime_yukarin_tpu_torch.models.super_resolution import SRNet
+from realtime_yukarin_tpu_torch.models.vocoder_nn import VocoderControlNet
+from realtime_yukarin_tpu_torch.models.vocoder_wave import WaveDecoderNet
 
-# Parameter trees of the JAX package that this port does not carry yet
-# (the ddsp and wave vocoder modes are later slices).
-NOT_CARRIED_PREFIXES = ("vocoder/", "vocoder_wave/")
 F0_STAT_NAMES = ("src_mean", "src_std", "tgt_mean", "tgt_std")
+NETS = ("stage1", "stage2", "vocoder", "vocoder_wave")
 
 
-def _lecun_normal_(weight: torch.Tensor, fan_in: int,
-                   generator: torch.Generator) -> None:
-    """flax's default kernel init: truncated normal, variance 1/fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
-
-
-def _init_module(net: nn.Module, generator: torch.Generator) -> None:
-    for name, layer in net.flax_layers().items():
-        w = layer.weight
-        with torch.no_grad():
-            if name == "head":
-                w.zero_()
-            else:
-                _lecun_normal_(w, w[0].numel(), generator)
-            layer.bias.zero_()
+def stage_nets(cfg: Config) -> dict[str, nn.Module]:
+    """Uninitialised modules of every stage, in ``NETS`` order."""
+    return {"stage1": AcousticNet(cfg.acoustic, cfg.dsp.mc_dim),
+            "stage2": SRNet(cfg.super_resolution, cfg.dsp.spec_bins),
+            "vocoder": VocoderControlNet(cfg.vocoder_nn, cfg.dsp),
+            "vocoder_wave": WaveDecoderNet(cfg.vocoder_wave, cfg.dsp)}
 
 
 def init_params(cfg: Config, generator: torch.Generator,
                 device="cpu") -> dict:
-    """Fresh parameters with the JAX ``init_params`` shapes for stage1,
-    stage2 and f0_stats: lecun-normal kernels, zero biases, zero heads
-    (so both stages are the identity until trained)."""
-    stage1 = AcousticNet(cfg.acoustic, cfg.dsp.mc_dim)
-    stage2 = SRNet(cfg.super_resolution, cfg.dsp.spec_bins)
-    _init_module(stage1, generator)
-    _init_module(stage2, generator)
+    """Fresh parameters with the JAX ``init_params`` shapes for all five
+    subtrees: lecun-normal kernels, zero biases, zero heads (so both stages
+    are the identity and both vocoders the DSP renderer until trained).
+    Inference copy on ``device`` (see :func:`params_to`)."""
+    nets = {k: init_module(net, generator)
+            for k, net in stage_nets(cfg).items()}
     f0_stats = {"src_mean": math.log(160.0), "src_std": 0.25,
                 "tgt_mean": math.log(160.0), "tgt_std": 0.25}
-    return params_to({"stage1": stage1, "stage2": stage2,
-                      "f0_stats": {k: torch.tensor(v, dtype=torch.float32)
-                                   for k, v in f0_stats.items()}}, device)
+    return params_to({**nets, "f0_stats": {
+        k: torch.tensor(v, dtype=torch.float32)
+        for k, v in f0_stats.items()}}, device)
+
+
+def _copy(params: dict, device, trainable: bool) -> dict:
+    device = torch.device(device)
+    nets = {}
+    for k in NETS:
+        if k in params:
+            net = copy.deepcopy(params[k]).to(device)
+            nets[k] = (net.train() if trainable else net.eval()
+                       ).requires_grad_(trainable)
+    stats = {k: v.detach().to(device).clone().requires_grad_(trainable)
+             for k, v in params["f0_stats"].items()}
+    return {**nets, "f0_stats": stats}
 
 
 def params_to(params: dict, device) -> dict:
-    """A copy of ``params`` on ``device`` for inference (the caller's
-    modules are left as they are)."""
-    device = torch.device(device)
-    nets = {k: copy.deepcopy(params[k]).to(device).eval()
-            .requires_grad_(False) for k in ("stage1", "stage2")}
-    return {**nets, "f0_stats": {k: v.to(device)
-                                 for k, v in params["f0_stats"].items()}}
+    """A frozen copy of ``params`` on ``device`` for inference (the
+    caller's modules are left as they are)."""
+    return _copy(params, device, trainable=False)
+
+
+def params_trainable(params: dict, device) -> dict:
+    """A trainable copy of ``params`` on ``device``: every module's
+    parameters and every ``f0_stats`` scalar are leaves that require
+    grad (the caller's tensors are left as they are)."""
+    return _copy(params, device, trainable=True)
+
+
+def param_leaves(params: dict) -> dict[str, list[torch.Tensor]]:
+    """{top-level subtree: its tensors}, the unit of per-stage clipping;
+    modules in ``parameters()`` order, ``f0_stats`` in ``F0_STAT_NAMES``
+    order."""
+    out = {}
+    for k, v in params.items():
+        out[k] = (list(v.parameters()) if isinstance(v, nn.Module)
+                  else [v[n] for n in F0_STAT_NAMES])
+    return out
 
 
 def convert_f0_stats(f0: torch.Tensor, stats: dict) -> torch.Tensor:
@@ -88,65 +105,112 @@ def compute_dtype(cfg: Config) -> torch.dtype:
         else torch.float32
 
 
-def _expected(cfg: Config) -> dict:
-    """flax name -> (module, parameter name, flax shape)."""
-    template = {"stage1": AcousticNet(cfg.acoustic, cfg.dsp.mc_dim),
-                "stage2": SRNet(cfg.super_resolution, cfg.dsp.spec_bins)}
+# ---------------------------------------------------------------------------
+# The JAX ``.npz`` layout
+# ---------------------------------------------------------------------------
+
+def flax_tensors(net: nn.Module) -> dict[str, torch.Tensor]:
+    """flax path under ``params/`` -> the module's tensor: ``<layer>/kernel``
+    (a conv weight [out, in, k] is flax's [k, in, out], a dense weight
+    [out, in] its [in, out]: the reversed axes), ``<layer>/bias``, and the
+    module's plain parameters (``flax_params``)."""
     out = {}
-    for stage, net in template.items():
-        for path, layer in net.flax_layers().items():
-            # conv [out, in, k] <-> flax [k, in, out]; dense [out, in] <->
-            # flax [in, out]: both are the reversed axes
-            kernel = tuple(layer.weight.shape[::-1])
-            out[f"{stage}/params/{path}/kernel"] = (stage, path, "weight",
-                                                    kernel)
-            out[f"{stage}/params/{path}/bias"] = (stage, path, "bias",
-                                                  tuple(layer.bias.shape))
-    for name in F0_STAT_NAMES:
-        out[f"f0_stats/{name}"] = ("f0_stats", name, None, ())
+    for path, layer in net.flax_layers().items():
+        out[f"{path}/kernel"] = layer.weight
+        out[f"{path}/bias"] = layer.bias
+    if hasattr(net, "flax_params"):
+        out.update(net.flax_params())
     return out
 
 
-def params_from_jax(flat: dict, cfg: Config, device="cpu"
-                    ) -> tuple[dict, list[str]]:
+def _to_flax(name: str, t: torch.Tensor) -> np.ndarray:
+    a = t.detach().cpu().numpy().astype(np.float32)
+    return np.transpose(a) if name.endswith("/kernel") else a
+
+
+def _expected(cfg: Config) -> dict[str, tuple]:
+    """flax name -> flax shape, for every leaf the port carries."""
+    out = {}
+    for stage, net in stage_nets(cfg).items():
+        for path, t in flax_tensors(net).items():
+            out[f"{stage}/params/{path}"] = np.shape(_to_flax(path, t))
+    for name in F0_STAT_NAMES:
+        out[f"f0_stats/{name}"] = ()
+    return out
+
+
+def load_flax(net: nn.Module, flat: dict, prefix: str = "params/") -> None:
+    """Copy ``flat[prefix + path]`` into each of ``net``'s tensors
+    (:func:`flax_tensors`); strict: a missing, extra or mis-shaped name
+    raises."""
+    tensors = flax_tensors(net)
+    names = {prefix + p for p in tensors}
+    missing = sorted(names - set(flat))
+    extra = sorted(set(flat) - names)
+    if missing or extra:
+        raise ValueError(f"npz params mismatch: missing={missing[:8]} "
+                         f"extra={extra[:8]}")
+    with torch.no_grad():
+        for path, t in tensors.items():
+            value = np.array(flat[prefix + path], np.float32)
+            if path.endswith("/kernel"):
+                value = np.transpose(value)
+            if value.shape != tuple(t.shape):
+                raise ValueError(
+                    f"shape mismatch for {prefix + path}: file "
+                    f"{np.shape(flat[prefix + path])} vs model "
+                    f"{np.shape(_to_flax(path, t))}")
+            t.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+
+
+def params_from_jax(flat: dict, cfg: Config, device="cpu") -> dict:
     """Fill the port's parameters from the JAX ``flatten_params`` layout.
 
-    Conv kernels [k, in, out] become ``conv1d`` weights [out, in, k];
-    dense kernels [in, out] become ``Linear`` weights [out, in].  Strict:
-    a missing, extra or mis-shaped name under stage1/, stage2/ or
-    f0_stats/ raises.  Returns (params, names not carried) — the
-    vocoder/ and vocoder_wave/ trees, which this port does not run yet.
-    """
+    Strict: a missing, extra or mis-shaped name under any of the five
+    subtrees raises.  Returns the params on ``device``."""
+    names = set(flat)
     expected = _expected(cfg)
-    not_carried = sorted(n for n in flat
-                         if n.startswith(NOT_CARRIED_PREFIXES))
-    names = set(flat) - set(not_carried)
     missing = sorted(set(expected) - names)
     extra = sorted(names - set(expected))
     if missing or extra:
         raise ValueError(f"npz params mismatch: missing={missing[:8]} "
                          f"extra={extra[:8]}")
-    for name, (_, _, _, shape) in expected.items():
+    for name, shape in expected.items():
         got = tuple(np.shape(flat[name]))
         if got != shape:
             raise ValueError(f"shape mismatch for {name}: file {got} vs "
                              f"model {shape}")
-    params = init_params(cfg, torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        for name, (stage, path, attr, _) in expected.items():
-            value = torch.from_numpy(np.array(flat[name], np.float32))
-            if stage == "f0_stats":
-                params["f0_stats"][path] = value
-                continue
-            param = getattr(params[stage].flax_layers()[path], attr)
-            if attr == "weight":
-                value = value.permute(*reversed(range(value.ndim)))
-            param.copy_(value)
-    return params_to(params, device), not_carried
+    params = {}
+    for stage, net in stage_nets(cfg).items():
+        load_flax(net, {k[len(stage) + 1:]: v for k, v in flat.items()
+                        if k.startswith(stage + "/")})
+        params[stage] = net
+    params["f0_stats"] = {n: torch.tensor(np.float32(flat[f"f0_stats/{n}"]))
+                          for n in F0_STAT_NAMES}
+    return params_to(params, device)
 
 
-def load_params_npz(path: str, cfg: Config, device="cpu"
-                    ) -> tuple[dict, list[str]]:
+def params_to_jax(params: dict) -> dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_jax`: {flax name: float32 array}
+    in the ``flatten_params`` layout, which the JAX package's
+    ``unflatten_params`` / ``load_params`` take strictly."""
+    out = {}
+    for stage in NETS:
+        for path, t in flax_tensors(params[stage]).items():
+            out[f"{stage}/params/{path}"] = _to_flax(path, t)
+    for n in F0_STAT_NAMES:
+        out[f"f0_stats/{n}"] = _to_flax(n, params["f0_stats"][n])
+    return out
+
+
+def save_params_npz(params: dict, path: str) -> None:
+    """Write ``params`` as the JAX package's ``.npz`` snapshot."""
+    if not str(path).endswith(".npz"):
+        raise ValueError(f"{path}: the port writes .npz snapshots only")
+    np.savez(path, **params_to_jax(params))
+
+
+def load_params_npz(path: str, cfg: Config, device="cpu") -> dict:
     """Strict loader for the JAX package's ``.npz`` snapshots (see
     :func:`params_from_jax`)."""
     with np.load(path, allow_pickle=False) as d:

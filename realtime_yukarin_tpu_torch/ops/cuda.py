@@ -27,8 +27,8 @@ import torch
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-# No --use_fast_math: the harmonic bank's phase reaches ~31 rad, where the
-# fast __sinf/__cosf intrinsics lose accuracy.
+# No --use_fast_math: the harmonic bank's phase reaches tens of radians,
+# where the fast __sinf/__cosf intrinsics lose accuracy.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,7 +104,10 @@ POWER_SPECTRUM = CudaKernel(
     "power_spectrum", (_P, _P, _P, _P, _P, _I, _I, _I, _P))
 ENVELOPE_CEPSTRUM = CudaKernel(
     "envelope_cepstrum", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P))
-KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM)
+HARMONIC_BANK_BWD = CudaKernel(
+    "harmonic_bank_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P))
+KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM,
+           HARMONIC_BANK_BWD)
 
 
 def reset_counts() -> None:

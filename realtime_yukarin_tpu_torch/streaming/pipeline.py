@@ -185,11 +185,13 @@ def init_stream(params: dict, cfg: Config, use_sr: bool = True, device=None
                 ) -> tuple[StreamCarry, StreamGeometry]:
     """Initial carry (on ``device``, ``cuda`` by default) and geometry of
     the dsp vocoder mode (``cfg.resolved_vocoder_mode`` must be "dsp": the
-    ddsp and wave modes are not ported yet, ROADMAP.md queue item 9)."""
+    ddsp and wave vocoders are not wired into streaming yet, ROADMAP.md
+    queue item 9)."""
     if cfg.resolved_vocoder_mode != "dsp":
         raise NotImplementedError(
-            f"vocoder mode {cfg.resolved_vocoder_mode!r} is not ported yet "
-            f"(ROADMAP.md queue item 9); the port runs 'dsp'")
+            f"vocoder mode {cfg.resolved_vocoder_mode!r} is not wired into "
+            f"streaming yet (ROADMAP.md queue item 9); the port streams "
+            f"'dsp'")
     device = resolve_device(device)
     geo = StreamGeometry.from_config(cfg, use_sr)
     return StreamCarry.init(cfg, geo, params, device), geo

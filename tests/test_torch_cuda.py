@@ -1,7 +1,9 @@
 """On the card only: each CUDA kernel of the PyTorch port against its plain
-version at the streaming step's widths, and the launch counts.  Skips where
-there is no GPU (a CUDA kernel has no CPU mode); on the GPU machine run
-``python -m pytest tests/test_torch_cuda.py -m cuda``."""
+version at the main paths' widths, the launch counts, and one training step
+through the kernels against the same step on the CPU.  Skips where there is
+no GPU (a CUDA kernel has no CPU mode); on the GPU machine (no JAX there,
+hence no conftest) run
+``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -19,10 +21,11 @@ def device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("R", [20, 1280])
+@pytest.mark.parametrize("R", chip_smoke.KERNEL_ROWS)
 def test_kernels_match_plain_versions(device, R):
     cases = chip_smoke.kernel_cases(R, Config(), device,
                                     np.random.default_rng(R))
@@ -32,3 +35,33 @@ def test_kernels_match_plain_versions(device, R):
         torch.cuda.synchronize()
         assert err <= chip_smoke.TOL[name], (name, err)
         assert getattr(cuda, name.upper()).launches == before + 1
+
+
+@pytest.mark.parametrize("R", [100, 800])
+def test_harmonic_bank_bwd_matches_plain_version(device, R):
+    kernel, plain, _, _ = chip_smoke.bwd_case(R, Config(), device,
+                                              np.random.default_rng(R))
+    before = cuda.HARMONIC_BANK_BWD.launches
+    for k, p in zip(kernel(), plain()):
+        _, err = chip_smoke.abs_rel_err(k, p)
+        assert err <= chip_smoke.TOL["harmonic_bank_bwd"], err
+    torch.cuda.synchronize()
+    assert cuda.HARMONIC_BANK_BWD.launches == before + 1
+
+
+def test_training_step_through_the_kernels_matches_cpu(device):
+    """A full-width training step on the card launches the bank's forward
+    twice (the two vocoders' renders) and its backward once (only the DDSP
+    render's amplitudes need a gradient); its losses and gradients match
+    the CPU's at chip_smoke's parity tolerances (the wave decoder's leaf by
+    leaf at the CUDA step's own loss cotangent).  At small widths the DDSP
+    vocoder's step gradient is nearer the STFT loss's ill-conditioned
+    regime (2.8e-3 of its peak at hidden 32 on the card), so the check runs
+    at full width."""
+    cuda.reset_counts()
+    chip_smoke.train_parity(Config(), device)   # raises on disagreement
+    torch.cuda.synchronize()
+    # one step (bank forward x2, backward x1), then the wave decoder's
+    # render (forward only: no parameter reaches its bank's amplitudes)
+    assert cuda.HARMONIC_BANK.launches == 3
+    assert cuda.HARMONIC_BANK_BWD.launches == 1

@@ -38,15 +38,19 @@ def test_init_params_shapes_match_jax(setup):
     jc, tc, _, _, _ = setup
     flat = j_vc.flatten_params(j_vc.init_params(jax.random.key(0), jc))
     expected = t_vc._expected(tc)
-    carried = {k: v for k, v in flat.items()
-               if k.startswith(("stage1/", "stage2/", "f0_stats/"))}
-    assert set(expected) == set(carried)
-    for name, (_, _, _, shape) in expected.items():
-        assert tuple(carried[name].shape) == shape, name
+    assert set(expected) == set(flat)          # all five subtrees carried
+    for name, shape in expected.items():
+        assert tuple(flat[name].shape) == shape, name
     fresh = t_vc.init_params(tc, torch.Generator().manual_seed(0))
     assert not fresh["stage1"].head.weight.any()
     assert not fresh["stage2"].head.weight.any()
+    assert not fresh["vocoder"].harm_head.weight.any()
+    assert not fresh["vocoder_wave"].comb_head.weight.any()
     assert fresh["stage1"].blocks[0].conv.weight.std() > 0
+    assert fresh["vocoder_wave"].convs[0].weight.std() > 0
+    np.testing.assert_array_equal(
+        fresh["vocoder_wave"].frac_ratios.numpy(),
+        flat["vocoder_wave/params/frac_ratios"])
 
 
 def test_stage1_streamed_matches_jax(setup):
@@ -136,13 +140,14 @@ def test_strict_loader(setup, tmp_path):
     jc, tc, jp, _, flat = setup
     path = tmp_path / "params.npz"
     j_vc.save_params(jp, str(path))
-    params, not_carried = t_vc.load_params_npz(str(path), tc)
-    assert not_carried and all(n.startswith(("vocoder/", "vocoder_wave/"))
-                               for n in not_carried)
+    params = t_vc.load_params_npz(str(path), tc)
     w = params["stage1"].blocks[0].conv.weight
     np.testing.assert_array_equal(
         w.numpy(), np.transpose(flat["stage1/params/block_0/conv/kernel"],
                                 (2, 1, 0)))
+    np.testing.assert_array_equal(
+        params["vocoder"].noise_head.weight.numpy(),
+        np.transpose(flat["vocoder/params/noise_head/kernel"], (2, 1, 0)))
     missing = dict(flat)
     del missing["stage2/params/head/bias"]
     with pytest.raises(ValueError, match="missing"):

@@ -31,16 +31,28 @@ def configs(cfg=None):
     return jc, TorchConfig.from_dict(jc.to_dict())
 
 
-def perturbed_params(jc, tc, seed: int = 1, scale: float = 0.02):
+def training_configs():
+    """(JAX Config, port Config): the tiny model config with the wave
+    vocoder shrunk too (hidden 32, 2 blocks, P = 4, Q = 2), float32."""
+    from realtime_yukarin_tpu.config import VocoderWaveConfig
+    return configs(dataclasses.replace(
+        tiny_config(), vocoder_wave=VocoderWaveConfig(
+            hidden=32, num_blocks=2, phase_harmonics=4,
+            phase_fractional=2)))
+
+
+def perturbed_params(jc, tc, seed: int = 1, scale: float = 0.02,
+                     prefixes=("stage1/", "stage2/")):
     """(JAX params, port params, flat npz dict): the JAX init with every
-    stage leaf perturbed by seeded gaussian noise, carried to the port."""
-    flat = flatten_params(init_params(jax.random.key(0), jc))
+    leaf under ``prefixes`` perturbed by seeded gaussian noise, carried to
+    the port."""
+    template = init_params(jax.random.key(0), jc)
     rng = np.random.default_rng(seed)
     flat = {k: (v + scale * rng.standard_normal(v.shape)).astype(v.dtype)
-            if k.startswith(("stage1/", "stage2/")) else v
-            for k, v in flat.items()}
-    jp = unflatten_params(init_params(jax.random.key(0), jc), flat)
-    tp, _ = params_from_jax(flat, tc)
+            if k.startswith(prefixes) else v
+            for k, v in flatten_params(template).items()}
+    jp = unflatten_params(template, flat)
+    tp = params_from_jax(flat, tc)
     return jp, tp, flat
 
 

@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
-"""Where one streaming step of the PyTorch port spends its time on the GPU.
+"""Where one step of the PyTorch port spends its time on the GPU.
 
-    python3 tools/torch_step_profile.py [--steps 10]
+    python3 tools/torch_step_profile.py [--steps 10]        # streaming step
+    python3 tools/torch_step_profile.py --train [--steps 3] # training steps
 
-Runs ``VoiceChangerStream(device="cuda")`` at the default Config (full
-width, bf16 models, the seeded weights and signal of chip_smoke.py), warms
-up, then traces ``--steps`` steps with ``torch.profiler``.  Prints the
-host wall time per step, the device busy time per step (sum of GPU kernel
-and copy durations; one stream, so they do not overlap), the device idle
-share, the kernel launches per step, and the GPU kernels by total time.
+Streaming: runs ``VoiceChangerStream(device="cuda")`` at the default Config
+(full width, bf16 models, the seeded weights and signal of chip_smoke.py),
+warms up, then traces ``--steps`` steps with ``torch.profiler``.
+
+``--train``: the default Config at full width in float32 with chip_smoke's
+batch (8 utterances x 100 frames); for the joint and the GAN objective in
+turn, warms up one step, then traces ``--steps`` calls of ``make_batch``
+on the card and, separately, ``--steps`` train steps on one batch (what
+``cli.train --synthetic`` does per step is the sum of the two).
+
+For each window it prints the host wall time per step, the device busy
+time per step (sum of GPU kernel and copy durations; one stream, so they do
+not overlap), the device idle share, the GPU launches per step, the GPU
+kernels by total time and the port's kernels' time per launch.
 """
 
 from __future__ import annotations
 
 import argparse
 import pathlib
+import re
 import sys
 import time
 
@@ -22,65 +32,130 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+# a record_function span's name ("Optimizer.step#AdamW.step"); kernel names
+# carry templates, scopes and parentheses
+ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
+PORT_KERNELS = ("harmonic_bank", "power_spectrum", "envelope_cepstrum",
+                "harmonic_bank_bwd")
 
-def main() -> int:
+
+def profile_window(label: str, fn, n: int) -> None:
+    """Trace ``n`` calls of ``fn`` and print the window's numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke
-    from realtime_yukarin_tpu_torch.config import Config
-    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
-
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--steps", type=int, default=10)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_step_profile: CUDA is not available", file=sys.stderr)
-        return 2
-    cfg = Config()
-    stream = VoiceChangerStream(chip_smoke.seeded_params(cfg), cfg,
-                                seed=chip_smoke.SEED, device="cuda")
-    S = stream.chunk_samples
-    x = chip_smoke.test_signal(3.0, cfg.dsp.sample_rate, chip_smoke.SEED)
-    chunks = [x[k * S: (k + 1) * S] for k in range(len(x) // S)]
-    for c in chunks[:5]:                       # warm-up
-        stream.add(c)
-        stream.process()
-    torch.cuda.synchronize()
-    todo = chunks[5: 5 + args.steps]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for c in todo:
-            stream.add(c)
-            stream.process()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    n = len(todo)
+    # GPU-side spans of user annotations (``Optimizer.step#AdamW.step``)
+    # overlap the kernels they contain: not device work of their own
     events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not ANNOTATION.match(e.name)]
     busy_us = sum(e.device_time for e in events)
-    print(f"[profile] {torch.cuda.get_device_name(0)}; {n} steps; host "
-          f"wall {wall / n * 1e3:.3f} ms/step")
+    print(f"[profile] {label}: {torch.cuda.get_device_name(0)}; {n} steps; "
+          f"host wall {wall / n * 1e3:.3f} ms/step")
     if not events:
-        print("[profile] device time: not measured (no CUDA events traced)")
-        return 0
-    print(f"[profile] device busy {busy_us / n / 1e3:.3f} ms/step, idle "
-          f"share {1 - busy_us * 1e-6 / wall:.3f}, "
+        print(f"[profile] {label}: device time: not measured (no CUDA "
+              f"events traced)")
+        return
+    print(f"[profile] {label}: device busy {busy_us / n / 1e3:.3f} ms/step, "
+          f"idle share {1 - busy_us * 1e-6 / wall:.3f}, "
           f"{len(events) / n:.1f} GPU launches/step")
     by_name: dict[str, list] = {}
     for e in events:
         by_name.setdefault(e.name, []).append(e.device_time)
     rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
     for name, times in rows[:20]:
-        print(f"[profile] {sum(times) / n:9.1f} us/step {len(times) / n:5.1f}"
-              f" calls/step  {name[:90]}")
-    for kname in ("harmonic_bank", "power_spectrum", "envelope_cepstrum"):
+        print(f"[profile] {label}: {sum(times) / n:9.1f} us/step "
+              f"{len(times) / n:6.1f} calls/step  {name[:90]}")
+    for kname in PORT_KERNELS:
         times = [t for name, ts in by_name.items()
                  if f"{kname}_kernel" in name for t in ts]
-        print(f"[profile] port kernel {kname}: "
+        print(f"[profile] {label}: port kernel {kname}: "
               f"{np.mean(times) if times else float('nan'):.1f} us/launch, "
               f"{len(times) / n:.1f} launches/step")
+
+
+def profile_stream(steps: int) -> None:
+    import chip_smoke
+    from realtime_yukarin_tpu_torch.config import Config
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+
+    cfg = Config()
+    stream = VoiceChangerStream(chip_smoke.seeded_params(cfg), cfg,
+                                seed=chip_smoke.SEED, device="cuda")
+    S = stream.chunk_samples
+    x = chip_smoke.test_signal(3.0, cfg.dsp.sample_rate, chip_smoke.SEED)
+    chunks = iter([x[k * S: (k + 1) * S] for k in range(len(x) // S)])
+
+    def one_step():
+        stream.add(next(chunks))
+        stream.process()
+
+    for _ in range(5):                           # warm-up
+        one_step()
+    profile_window("stream", one_step, steps)
+
+
+def profile_train(steps: int) -> None:
+    import torch
+
+    import chip_smoke
+    from realtime_yukarin_tpu_torch.config import Config
+    from realtime_yukarin_tpu_torch.models.discriminator import (
+        init_discriminator)
+    from realtime_yukarin_tpu_torch.models.voice_changer import init_params
+    from realtime_yukarin_tpu_torch.training import train_step as ts
+    from realtime_yukarin_tpu_torch.training.data import make_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config()
+    dev = torch.device("cuda")
+    seconds = chip_smoke.TRAIN_FRAMES * cfg.dsp.hop / cfg.dsp.sample_rate
+    seeds = iter(range(1000))
+
+    def new_batch():
+        return make_batch(cfg, chip_smoke.TRAIN_BATCH, seconds=seconds,
+                          seed=next(seeds), device=dev)
+
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    disc = init_discriminator(cfg.super_resolution, cfg.dsp,
+                              torch.Generator().manual_seed(1))
+    batch = new_batch()
+    for name, state, step_fn in (
+            ("train joint", ts.init_train_state(params, dev),
+             ts.make_train_step(cfg)),
+            ("train gan", ts.init_gan_train_state(params, disc, dev),
+             ts.make_gan_train_step(cfg))):
+        step_fn(state, batch)                    # warm-up
+        torch.cuda.synchronize()
+        profile_window(name, lambda: step_fn(state, batch), steps)
+    profile_window("make_batch", new_batch, steps)
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=None,
+                    help="steps traced per window (10 streaming, 3 train)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile the training steps instead of streaming")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_step_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    if args.train:
+        profile_train(args.steps or 3)
+    else:
+        profile_stream(args.steps or 10)
     return 0
 
 
