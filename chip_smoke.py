@@ -15,9 +15,17 @@ non-zero):
    training batch: what ``make_batch``'s analysis gives the power spectrum
    and the envelope cepstrum), R = 800 (the batch: what training's renders
    give the bank) and R = 1280 (64 streams' rows), and the harmonic-bank
-   backward at R = 100 and R = 800, with CUDA-event times of the kernel,
-   the plain version and the library yardstick, beside the bound reckoned
-   from the shapes;
+   backward at R = 100 and R = 800.  For each: the error against the plain
+   version and, for the analysis kernels, both against a float64
+   evaluation of the plain chain; CUDA-event times of the kernel, the plain
+   version and the library yardstick (mean of 200 back-to-back calls, so
+   at small R they include the Python wrapper's dispatch); device time per
+   call of the kernel, the plain version and the library call, measured
+   the same way (``device_ms``: ``torch.profiler`` over 50 calls, every
+   GPU kernel of the window summed); the analysis wrappers' host time per
+   call; the bound reckoned from the shapes (float32 FMA).  The analysis
+   kernels are also checked, unprofiled, at ragged R = 1, 21, 1281 and at
+   fft_size 1024 (K = 513) for every R above;
 4. main path: ``VoiceChangerStream(device="cuda")`` at the default Config
    (full width, bf16 models, seeded perturbed weights) on 3 s of a seeded
    voiced/unvoiced signal in 100 ms chunks, then ``flush()``; checks the
@@ -48,6 +56,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 
@@ -72,6 +81,12 @@ TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 100, 3
 # Forward kernels' row counts in phase 3: streaming step, one utterance of
 # a training batch (the analysis), the batch (the bank), 64 streams
 KERNEL_ROWS = (20, TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES, 1280)
+# The analysis kernels also at ragged row counts (one row, one past a row
+# group, one past 64 streams) and at fft_size 1024 (K = 513, the COMPAT
+# configuration), checked but not profiled
+ANALYSIS_KERNELS = ("power_spectrum", "envelope_cepstrum")
+RAGGED_CASES = tuple((1022, R) for R in (1, 21, 1281)) + tuple(
+    (1024, R) for R in (1, 20, 21, 100, 800, 1280, 1281))
 # CUDA vs CPU, one training step (float32 on both; cuBLAS/cuFFT/the kernels
 # vs MKL/pocketfft/the plain versions sum in other orders): the losses
 # relative; stage 1, stage 2 and the DDSP vocoder's gradients as a fraction
@@ -112,11 +127,93 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 50) -> float:
+    """Device time of ``fn`` in ms per call: ``torch.profiler`` over
+    ``iters`` back-to-back calls, every GPU kernel and copy of the window
+    summed (one stream, so they do not overlap), divided by ``iters``.
+    Kernel and library call are measured the same way."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    if not times:
+        raise AssertionError("torch.profiler traced no GPU work")
+    return sum(times) / iters / 1e3
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time of one call in us: the enqueue, no device sync inside."""
+    import torch
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """The larger of bytes over the memory rate and float32 operations
+    over the FMA peak, and which of the two it is."""
     t_mem = n_bytes / PEAK_HBM_BYTES
     t_ops = n_flops / PEAK_F32_FLOPS
     return (max(t_mem, t_ops) * 1e3,
             "bytes" if t_mem >= t_ops else "operations")
+
+
+def kernel_phase(kname: str, R: int, n: int, case: Case,
+                 timed: bool = True) -> dict:
+    """Check one kernel call against its plain version (and both against
+    float64, where there is a float64 chain); time it unless ``timed`` is
+    False.  Prints one line; returns the kernels-line record."""
+    import torch
+    out, ref = case.kernel(), case.plain()
+    err_abs, err = abs_rel_err(out, ref)
+    torch.cuda.synchronize()
+    ok = err <= TOL[kname]
+    line = (f"[kernel] {kname} R={R}"
+            + (f" n={n}" if kname in ANALYSIS_KERNELS else "")
+            + f": max_err {err_abs:.3e}, /peak={err:.3e} (tol "
+            f"{TOL[kname]:g}) {'ok' if ok else 'FAIL'}")
+    if case.ref64 is not None:
+        ref64 = case.ref64()
+        _, e_k = abs_rel_err(out.double(), ref64)
+        _, e_p = abs_rel_err(ref.double(), ref64)
+        line += f" | vs float64 /peak: kernel {e_k:.3e}, plain {e_p:.3e}"
+    if not ok:
+        print(line)
+        raise AssertionError(f"{kname} R={R} n={n}: error {err:.3e} above "
+                             f"{TOL[kname]:g}")
+    if not timed:
+        print(line + f" | kernel {time_ms(case.kernel, 50, 5):.5f} ms")
+        return {}
+    ms, plain_ms = time_ms(case.kernel), time_ms(case.plain)
+    lib_ms = time_ms(case.library) if case.library is not None else None
+    dev_ms, plain_dev = device_ms(case.kernel), device_ms(case.plain)
+    lib_dev = device_ms(case.library) if case.library is not None else None
+    b_ms, b_by = bound_ms(case.nbytes, case.flops)
+    bounds = f"bound {b_ms:.5f} ms ({b_by}, float32 FMA)"
+    lib_txt = (f"{lib_ms:.5f} ms (device {lib_dev:.5f} ms)"
+               if lib_ms is not None else "n/a")
+    host = (f", wrapper host {host_us(case.kernel):.1f} us/call"
+            if kname in ANALYSIS_KERNELS else "")
+    print(line + f" | kernel {ms:.5f} ms (device {dev_ms:.5f} ms{host}), "
+          f"plain {plain_ms:.5f} ms (device {plain_dev:.5f} ms), library "
+          f"{lib_txt}, {bounds}")
+    return dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms, device_ms=dev_ms,
+                plain_device_ms=plain_dev, library_device_ms=lib_dev)
 
 
 def abs_rel_err(a, b) -> tuple[float, float]:
@@ -125,9 +222,18 @@ def abs_rel_err(a, b) -> tuple[float, float]:
     return err, err / (float(b.abs().max()) + 1e-30)
 
 
-def kernel_cases(R: int, cfg, dev, rng):
-    """{name: (kernel call, plain call, library call or None, bytes,
-    flops)} on seeded inputs at the main path's widths with R rows."""
+class Case(NamedTuple):
+    kernel: Callable
+    plain: Callable
+    library: Callable | None     # one PyTorch call computing the same
+    nbytes: float                # each input read once, output written once
+    flops: float
+    ref64: Callable | None       # the plain chain in float64
+
+
+def kernel_cases(R: int, cfg, dev, rng, n: int | None = None):
+    """{name: Case} on seeded inputs at the main path's widths with R
+    rows; ``n`` overrides the analysis kernels' frame size."""
     import torch
     from realtime_yukarin_tpu_torch.ops import analysis, dft
     from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
@@ -136,7 +242,8 @@ def kernel_cases(R: int, cfg, dev, rng):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
                                device=dev)
 
-    H, hop, n = cfg.dsp.num_harmonics, cfg.dsp.hop, cfg.dsp.fft_size
+    H, hop = cfg.dsp.num_harmonics, cfg.dsp.hop
+    n = n or cfg.dsp.fft_size
     K = n // 2 + 1
     al, ar = t(rng.uniform(0, 0.1, (R, H))), t(rng.uniform(0, 0.1, (R, H)))
     phi = t(rng.uniform(0, 2 * np.pi, (R, 1))
@@ -153,24 +260,27 @@ def kernel_cases(R: int, cfg, dev, rng):
     C = dft.device_const(dft.cepstrum_basis, n, like=P)
     D = dft.device_const(dft.cepstrum_inverse_basis, n, like=P)
     return {
-        "harmonic_bank": (
+        "harmonic_bank": Case(
             lambda: hb.harmonic_bank(al, ar, phi, frac),
             lambda: hb.harmonic_bank_plain(al, ar, phi, frac),
             None,
             4 * (2 * R * H + 2 * R * hop + hop),
-            6.0 * R * hop * H),
-        "power_spectrum": (
+            6.0 * R * hop * H, None),
+        "power_spectrum": Case(
             lambda: analysis.power_spectrum_fused(frames, n),
             lambda: analysis.power_spectrum_plain(frames, n),
             lambda: torch.matmul(frames, cs),
             4 * (R * n + n + 2 * n * K + R * K),
-            4.0 * R * n * K),
-        "envelope_cepstrum": (
+            4.0 * R * n * K,
+            lambda: analysis.power_spectrum_plain(frames.double(), n)),
+        "envelope_cepstrum": Case(
             lambda: analysis.envelope_cepstrum_fused(P, lift, n, db),
             lambda: analysis.envelope_cepstrum_plain(P, lift, n, db),
             lambda: torch.matmul(torch.matmul(torch.matmul(P, C), D), C),
             4 * (3 * R * K + 2 * K * K),
-            6.0 * R * K * K),
+            6.0 * R * K * K,
+            lambda: analysis.envelope_cepstrum_plain(P.double(),
+                                                     lift.double(), n, db)),
     }
 
 
@@ -475,27 +585,14 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     record = {}
     for R in KERNEL_ROWS:
-        for kname, (kern, plain, lib, nbytes, nflops) in kernel_cases(
-                R, cfg, dev, rng).items():
-            err_abs, err = abs_rel_err(kern(), plain())
-            torch.cuda.synchronize()
-            ok = err <= TOL[kname]
-            ms, plain_ms = time_ms(kern), time_ms(plain)
-            lib_ms = time_ms(lib) if lib is not None else None
-            b_ms, b_by = bound_ms(nbytes, nflops)
-            lib_txt = f"{lib_ms:.5f}" if lib_ms is not None else "n/a"
-            print(f"[kernel] {kname} R={R}: max_err {err_abs:.3e}, "
-                  f"/peak={err:.3e} "
-                  f"(tol {TOL[kname]:g}) {'ok' if ok else 'FAIL'} | "
-                  f"kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, library "
-                  f"{lib_txt} ms, bound {b_ms:.5f} ms ({b_by})")
-            if not ok:
-                raise AssertionError(f"{kname} R={R}: error {err:.3e} "
-                                     f"above {TOL[kname]:g}")
+        for kname, case in kernel_cases(R, cfg, dev, rng).items():
+            rec = kernel_phase(kname, R, cfg.dsp.fft_size, case)
             if R == 20:
-                record[kname] = dict(max_abs_err=err_abs, ms=ms,
-                                     plain_ms=plain_ms, bound_ms=b_ms,
-                                     bound_by=b_by, library_ms=lib_ms)
+                record[kname] = rec
+    for n, R in RAGGED_CASES:
+        cases = kernel_cases(R, cfg, dev, rng, n=n)
+        for kname in ANALYSIS_KERNELS:
+            kernel_phase(kname, R, n, cases[kname], timed=False)
     kname = "harmonic_bank_bwd"
     for R in (TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES):
         kern, plain, nbytes, nflops = bwd_case(R, cfg, dev, rng)
@@ -505,18 +602,22 @@ def main() -> int:
         err = max(e[1] for e in errs)
         ok = err <= TOL[kname]
         ms, plain_ms = time_ms(kern), time_ms(plain)
+        dev_ms, plain_dev = device_ms(kern), device_ms(plain)
         b_ms, b_by = bound_ms(nbytes, nflops)
         print(f"[kernel] {kname} R={R}: /peak d_aL {errs[0][1]:.3e} d_aR "
               f"{errs[1][1]:.3e} d_phi {errs[2][1]:.3e} d_frac "
               f"{errs[3][1]:.3e} (tol {TOL[kname]:g}) "
-              f"{'ok' if ok else 'FAIL'} | kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.5f} ms, library n/a, bound {b_ms:.5f} ms "
+              f"{'ok' if ok else 'FAIL'} | kernel {ms:.5f} ms (device "
+              f"{dev_ms:.5f} ms), plain {plain_ms:.5f} ms (device "
+              f"{plain_dev:.5f} ms), library n/a, bound {b_ms:.5f} ms "
               f"({b_by})")
         if not ok:
             raise AssertionError(f"{kname} R={R}: error {err:.3e} above "
                                  f"{TOL[kname]:g}")
         record[kname] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             device_ms=dev_ms, plain_device_ms=plain_dev,
+                             library_device_ms=None)
 
     # 4. the main path at full width, bf16 models
     params = seeded_params(cfg)

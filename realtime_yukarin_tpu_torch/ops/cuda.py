@@ -101,9 +101,10 @@ class CudaKernel:
 HARMONIC_BANK = CudaKernel(
     "harmonic_bank", (_P, _P, _P, _P, _P, _I, _I, _I, _P))
 POWER_SPECTRUM = CudaKernel(
-    "power_spectrum", (_P, _P, _P, _P, _P, _I, _I, _I, _P))
+    "power_spectrum", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
 ENVELOPE_CEPSTRUM = CudaKernel(
-    "envelope_cepstrum", (_P, _P, _P, _P, _P, _I, _I, _F, _F, _P))
+    "envelope_cepstrum", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+                          _P))
 HARMONIC_BANK_BWD = CudaKernel(
     "harmonic_bank_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P))
 KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM,

@@ -64,6 +64,49 @@ def cepstrum_inverse_basis(n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
+def stacked_rfft_basis(n: int, tile_bins: int, depth: int, row: int
+                       ) -> np.ndarray:
+    """[tiles, depth, row]: the rfft bases in the power-spectrum kernel's
+    layout (csrc/power_spectrum.cu).
+
+    Bin j's cos and sin columns are stacked columns 2j and 2j+1; the
+    stacked columns are cut into tiles of ``tile_bins`` bins, each stored
+    as one contiguous [depth, row] block (depth zero-padded from n, the
+    row zero-padded from 2 * tile_bins columns against shared-memory bank
+    conflicts), so any depth slice of a tile is one contiguous span."""
+    assert n % 2 == 0 and n <= depth, (n, depth)
+    cos, sin = rfft_bases(n)
+    K = n // 2 + 1
+    tiles = -(-K // tile_bins)
+    stacked = np.zeros((depth, tiles * 2 * tile_bins))
+    stacked[:n, 0:2 * K:2] = cos
+    stacked[:n, 1:2 * K:2] = sin
+    out = np.zeros((tiles, depth, row))
+    out[:, :, :2 * tile_bins] = stacked.reshape(
+        depth, tiles, 2 * tile_bins).transpose(1, 0, 2)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def sliced_cepstrum_basis(n: int, width: int, slices: int) -> np.ndarray:
+    """[slices, slices * width, width]: ``cepstrum_inverse_basis(n)`` (D) in
+    the envelope-cepstrum kernel's layout (csrc/envelope_cepstrum.cu).
+
+    Slice c holds output columns [c * width, (c + 1) * width) over the
+    whole depth, both zero-padded from K = n/2 + 1 to slices * width, so
+    any run of depth rows of a slice is one contiguous span.  The kernel
+    needs no other basis: ``cepstrum_basis(n)`` is D / n (the same cosines
+    and end weights)."""
+    K = n // 2 + 1
+    kp = slices * width
+    assert kp >= K, (n, width, slices)
+    padded = np.zeros((kp, kp))
+    padded[:K, :K] = cepstrum_inverse_basis(n)
+    return np.ascontiguousarray(
+        padded.reshape(kp, slices, width).transpose(1, 0, 2))
+
+
+@functools.lru_cache(maxsize=None)
 def prefix_sum_matrix(n: int) -> np.ndarray:
     """[n, n] ones where row <= col: (d @ M)[l] = sum_{j<=l} d[j]."""
     return np.triu(np.ones((n, n), np.float64))

@@ -29,12 +29,54 @@ def device():
 def test_kernels_match_plain_versions(device, R):
     cases = chip_smoke.kernel_cases(R, Config(), device,
                                     np.random.default_rng(R))
-    for name, (kernel, plain, _, _, _) in cases.items():
+    for name, case in cases.items():
         before = getattr(cuda, name.upper()).launches
-        _, err = chip_smoke.abs_rel_err(kernel(), plain())
+        _, err = chip_smoke.abs_rel_err(case.kernel(), case.plain())
         torch.cuda.synchronize()
         assert err <= chip_smoke.TOL[name], (name, err)
         assert getattr(cuda, name.upper()).launches == before + 1
+
+
+@pytest.mark.parametrize("n,R", chip_smoke.RAGGED_CASES)
+def test_analysis_kernels_at_ragged_rows_and_k513(device, n, R):
+    """Both analysis kernels at ragged row counts and at fft_size 1024
+    (K = 513): one launch per call, and every one of several back-to-back
+    calls within tolerance of the plain version (the clusters exchange
+    partial results through each other's shared memory; a race there
+    shows as a call that disagrees)."""
+    cases = chip_smoke.kernel_cases(R, Config(), device,
+                                    np.random.default_rng(R), n=n)
+    for name in chip_smoke.ANALYSIS_KERNELS:
+        kernel = getattr(cuda, name.upper())
+        plain = cases[name].plain()
+        for _ in range(3):
+            before = kernel.launches
+            out = cases[name].kernel()
+            assert kernel.launches == before + 1
+            assert out.shape == (R, n // 2 + 1)
+            _, err = chip_smoke.abs_rel_err(out, plain)
+            torch.cuda.synchronize()
+            assert err <= chip_smoke.TOL[name], (name, err)
+
+
+@pytest.mark.parametrize("R", [20, 21, 100])
+def test_analysis_kernels_agree_on_every_one_of_many_calls(device, R):
+    """1000 back-to-back calls of each analysis kernel at the streaming and
+    make_batch widths, every result within tolerance of the plain version.
+    The clusters hand partial results to each other's shared memory by bulk
+    copies; a missing barrier before such a copy shows only now and then,
+    as a call that disagrees."""
+    cases = chip_smoke.kernel_cases(R, Config(), device,
+                                    np.random.default_rng(R))
+    for name in chip_smoke.ANALYSIS_KERNELS:
+        plain = cases[name].plain()
+        peak = plain.abs().max()
+        errs = torch.stack([(cases[name].kernel() - plain).abs().max()
+                            for _ in range(1000)]) / peak
+        torch.cuda.synchronize()
+        worst = float(errs.max())
+        assert worst <= chip_smoke.TOL[name], (
+            name, worst, int((errs > chip_smoke.TOL[name]).sum()))
 
 
 @pytest.mark.parametrize("R", [100, 800])

@@ -4,6 +4,8 @@ references, at the tolerances of tests/test_pallas.py, and the harmonic
 bank's autograd Function on the CPU.  A CPU tensor never launches a kernel:
 the launch counts stay 0."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +23,8 @@ import jax
 from realtime_yukarin_tpu.ops.pallas_synth import (
     _harmonic_bank_bwd_impl as j_hb_bwd, harmonic_bank as j_hb,
     harmonic_bank_xla as j_hbx)
-from realtime_yukarin_tpu_torch.ops import analysis, cuda
+from realtime_yukarin_tpu_torch.dsp import primitives as prim
+from realtime_yukarin_tpu_torch.ops import analysis, cuda, dft
 from realtime_yukarin_tpu_torch.ops.harmonic_bank import (
     harmonic_bank, harmonic_bank_bwd, harmonic_bank_bwd_plain,
     harmonic_bank_plain)
@@ -151,6 +154,195 @@ def test_envelope_cepstrum_matches_jax():
     out = analysis.envelope_cepstrum_fused(t32(P), t32(lift), n, db).numpy()
     assert rel_to_peak(out, ref_x) < 1e-4
     assert rel_to_peak(out, ref_k) < 1e-4
+
+
+def _power_inputs(n, R=24, seed=5):
+    frames = (np.random.default_rng(seed).standard_normal((R, n)) * 0.3
+              ).astype(np.float32)
+    ref_x = np.asarray(j_power_xla(jnp.asarray(frames), n))
+    ref_k = np.asarray(j_power_fused(jnp.asarray(frames), n, interpret=True))
+    return frames, ref_x, ref_k
+
+
+def _power_from_basis(frames, n):
+    """The power-spectrum kernel's arithmetic on the CPU: frames (zero-padded
+    to the basis depth) against the windowed, stacked, tile-contiguous
+    basis, then de-interleaved into re and im and squared."""
+    basis = torch.as_tensor(analysis.power_basis(n), dtype=torch.float32)
+    tiles, depth, _ = basis.shape
+    flat = basis[:, :, :2 * analysis.TILE_BINS].permute(1, 0, 2).reshape(
+        depth, tiles * 2 * analysis.TILE_BINS)
+    x = torch.nn.functional.pad(t32(frames), (0, depth - n))
+    y = x @ flat
+    K = n // 2 + 1
+    re, im = y[:, 0::2][:, :K], y[:, 1::2][:, :K]
+    return (re * re + im * im).numpy()
+
+
+@pytest.mark.parametrize("n", [1022, 1024])
+def test_power_basis_layout_gives_the_power_spectrum(n):
+    """The kernel's one constant -- Hann folded into the cos/sin bases,
+    bin j at stacked columns 2j / 2j+1, depth padded to 1024, tiles of 32
+    bins stored contiguously with 8 zero columns -- multiplied by plain
+    torch and de-interleaved: the plain version to 1e-6 of the peak, JAX's
+    XLA reference and the interpret-mode Pallas kernel to 1e-4."""
+    basis = analysis.power_basis(n)
+    K = n // 2 + 1
+    assert basis.shape == (-(-K // analysis.TILE_BINS), analysis.DEPTH,
+                           analysis.BASIS_ROW)
+    assert not basis[:, n:, :].any()
+    assert not basis[:, :, 2 * analysis.TILE_BINS:].any()
+    frames, ref_x, ref_k = _power_inputs(n)
+    out = _power_from_basis(frames, n)
+    plain = analysis.power_spectrum_plain(t32(frames), n).numpy()
+    assert rel_to_peak(out, plain) < 1e-6
+    assert rel_to_peak(out, ref_x) < 1e-4
+    assert rel_to_peak(out, ref_k) < 1e-4
+
+
+def _cepstrum_inputs(n, R=24, seed=3):
+    cfg = DspConfig()
+    K = n // 2 + 1
+    rng = np.random.default_rng(seed)
+    P = (rng.uniform(0, 1, (R, K)) ** 2 * 1e-2).astype(np.float32)
+    lift = np.sinc(rng.uniform(80, 300, (R, 1)) * np.arange(K)
+                   / cfg.sample_rate).astype(np.float32)
+    db = cfg.envelope_floor_db
+    ref_x = np.asarray(j_cepstrum_xla(jnp.asarray(P), jnp.asarray(lift), n,
+                                      db))
+    ref_k = np.asarray(j_cepstrum_fused(jnp.asarray(P), jnp.asarray(lift), n,
+                                        db, interpret=True))
+    return P, lift, db, ref_x, ref_k
+
+
+def _cepstrum_from_basis(P, lift, n, db):
+    """The envelope-cepstrum kernel's arithmetic on the CPU: the column-
+    sliced D reassembled, and C = D / n, so all three products use D."""
+    K = n // 2 + 1
+    width = analysis.cepstrum_plan(len(P), K).width
+    sl = torch.as_tensor(dft.sliced_cepstrum_basis(n, width, analysis.CLUSTER),
+                         dtype=torch.float32)
+    kp = sl.shape[1]
+    D = sl.permute(1, 0, 2).reshape(kp, kp)
+    pad = kp - K
+    x = torch.nn.functional.pad(t32(P), (0, pad))
+    lf = torch.nn.functional.pad(t32(lift), (0, pad))
+    Y = (x @ D) * (1.0 / (2 * (K - 1))) * lf
+    Ps = (Y @ D)[:, :K]
+    floor = torch.clamp(Ps.amax(dim=1, keepdim=True) * 10.0 ** (db / 10.0),
+                        min=prim.POWER_FLOOR)
+    L = torch.nn.functional.pad(torch.log(torch.maximum(Ps, floor)),
+                                (0, pad))
+    return ((L @ D) * (1.0 / (2 * (K - 1))) * lf)[:, :K].numpy()
+
+
+@pytest.mark.parametrize("n", [1022, 1024])
+def test_sliced_cepstrum_basis_is_d_and_gives_the_chain(n):
+    """The kernel's one constant reassembles to cepstrum_inverse_basis (D),
+    cepstrum_basis is D / n, and the chain computed from it the kernel's
+    way matches the plain version to 1e-6 of the peak and JAX's XLA
+    reference and interpret-mode Pallas kernel to 1e-4."""
+    K = n // 2 + 1
+    width = analysis.cepstrum_plan(20, K).width
+    sl = dft.sliced_cepstrum_basis(n, width, analysis.CLUSTER)
+    kp = sl.shape[1]
+    assert sl.shape == (analysis.CLUSTER, kp, width) and kp >= K
+    D = sl.transpose(1, 0, 2).reshape(kp, kp)
+    np.testing.assert_array_equal(D[:K, :K], dft.cepstrum_inverse_basis(n))
+    assert not D[K:].any() and not D[:, K:].any()
+    np.testing.assert_allclose(D[:K, :K] / n, dft.cepstrum_basis(n),
+                               rtol=1e-15, atol=1e-18)
+    P, lift, db, ref_x, ref_k = _cepstrum_inputs(n)
+    out = _cepstrum_from_basis(P, lift, n, db)
+    plain = analysis.envelope_cepstrum_plain(t32(P), t32(lift), n,
+                                             db).numpy()
+    assert rel_to_peak(out, plain) < 1e-6
+    assert rel_to_peak(out, ref_x) < 1e-4
+    assert rel_to_peak(out, ref_k) < 1e-4
+
+
+def _covered_once(spans, total):
+    count = np.zeros(total, int)
+    for a, b in spans:
+        assert 0 <= a < b <= total, (a, b, total)
+        count[a:b] += 1
+    return bool((count == 1).all())
+
+
+@pytest.mark.parametrize("K", [512, 513])
+@pytest.mark.parametrize("R", [1, 20, 21, 100, 800, 1280, 1281])
+def test_kernel_plans_cover_every_row_bin_and_depth_once(R, K):
+    """Both kernels' grids, as their plans lay them out, take every row,
+    every bin (column) and every depth sample exactly once."""
+    n = 2 * (K - 1)
+    power = analysis.power_plan(R, n)
+    assert power.row_tile <= analysis.CLUSTER_ROWS
+    spans = power.spans(R, n)
+    assert _covered_once(spans["rows"], R)
+    assert _covered_once(spans["bins"], K)
+    assert _covered_once(spans["depth"], n)
+    cep = analysis.cepstrum_plan(R, K)
+    assert analysis._cepstrum_smem(cep.rows, cep.width) <= \
+        analysis.SMEM_BYTES
+    spans = cep.spans(R, K)
+    assert _covered_once(spans["rows"], R)
+    assert _covered_once(spans["columns"], K)
+    assert _covered_once(spans["depth"], K)
+
+
+def _constexprs(name):
+    """{name: value} of the integer constants of csrc/<name>.cu."""
+    src = (cuda.CSRC_DIR / f"{name}.cu").read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
+
+
+@pytest.mark.parametrize("n", [1022, 1024])
+def test_power_plan_and_basis_are_in_the_kernels_layout(n):
+    """What the wrapper hands csrc/power_spectrum.cu -- cluster size,
+    padded depth, bins per tile, floats per basis row, rows per cluster --
+    is what the kernel was built for (its launcher refuses anything else,
+    so a drift shows here before it shows on the card)."""
+    c = _constexprs("power_spectrum")
+    assert (c["SLICES"], c["DEPTH"], c["TILE_BINS"], c["LD"],
+            c["MAX_ROW_TILE"]) == (analysis.CLUSTER, analysis.DEPTH,
+                                   analysis.TILE_BINS, analysis.BASIS_ROW,
+                                   analysis.CLUSTER_ROWS)
+    tiles = -(-(n // 2 + 1) // c["TILE_BINS"])
+    assert analysis.power_basis(n).shape == (tiles, c["DEPTH"], c["LD"])
+    for R in (1, 20, 21, 100, 800, 1280, 1281):
+        plan = analysis.power_plan(R, n)
+        assert 1 <= plan.row_tile <= c["MAX_ROW_TILE"]
+        assert plan.depth_slice * c["SLICES"] == c["DEPTH"]
+
+
+@pytest.mark.parametrize("K", [512, 513])
+def test_cepstrum_plans_are_among_the_kernels_built(K):
+    """Every (rows per thread, depth warps) the plan may choose is one that
+    csrc/envelope_cepstrum.cu instantiates, its width is one the launcher
+    takes, and the basis it uploads has the kernel's cluster size."""
+    src = (cuda.CSRC_DIR / "envelope_cepstrum.cu").read_text()
+    built = {(int(a), int(b)) for a, b in
+             re.findall(r"rpt == (\d+) && wd == (\d+)", src)}
+    assert built == set(analysis.ROW_GROUPS.values())
+    assert _constexprs("envelope_cepstrum")["CL"] == analysis.CLUSTER
+    for R in (1, 20, 21, 100, 800, 1280, 1281):
+        plan = analysis.cepstrum_plan(R, K)
+        assert (plan.rows_per_thread, plan.depth_warps) in built
+        assert plan.rows == (8 // plan.depth_warps) * plan.rows_per_thread
+        W = plan.width
+        assert W % 8 == 0 and 64 <= W <= 128 and analysis.CLUSTER * W >= K
+    sl = dft.sliced_cepstrum_basis(2 * (K - 1), W, analysis.CLUSTER)
+    assert sl.shape == (analysis.CLUSTER, analysis.CLUSTER * W, W)
+
+
+def test_plans_refuse_shapes_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        analysis.power_plan(20, 512)
+    with pytest.raises(ValueError):
+        analysis.power_plan(20, 1023)
+    with pytest.raises(ValueError):
+        analysis.cepstrum_plan(20, 700)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

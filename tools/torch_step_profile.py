@@ -35,8 +35,14 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 # a record_function span's name ("Optimizer.step#AdamW.step"); kernel names
 # carry templates, scopes and parentheses
 ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
-PORT_KERNELS = ("harmonic_bank", "power_spectrum", "envelope_cepstrum",
-                "harmonic_bank_bwd")
+# each port kernel's CUDA functions (csrc/<name>.cu), matched as
+# "<function><" or "<function>(" in the profiler's demangled names
+PORT_KERNELS = {
+    "harmonic_bank": ("harmonic_bank_kernel",),
+    "power_spectrum": ("power_spectrum_kernel",),
+    "envelope_cepstrum": ("envelope_cepstrum_kernel",),
+    "harmonic_bank_bwd": ("harmonic_bank_bwd_kernel",),
+}
 
 
 def profile_window(label: str, fn, n: int) -> None:
@@ -74,9 +80,10 @@ def profile_window(label: str, fn, n: int) -> None:
     for name, times in rows[:20]:
         print(f"[profile] {label}: {sum(times) / n:9.1f} us/step "
               f"{len(times) / n:6.1f} calls/step  {name[:90]}")
-    for kname in PORT_KERNELS:
+    for kname, functions in PORT_KERNELS.items():
         times = [t for name, ts in by_name.items()
-                 if f"{kname}_kernel" in name for t in ts]
+                 if any(f + c in name for f in functions for c in "<(")
+                 for t in ts]
         print(f"[profile] {label}: port kernel {kname}: "
               f"{np.mean(times) if times else float('nan'):.1f} us/launch, "
               f"{len(times) / n:.1f} launches/step")
