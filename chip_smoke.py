@@ -15,17 +15,20 @@ non-zero):
    training batch: what ``make_batch``'s analysis gives the power spectrum
    and the envelope cepstrum), R = 800 (the batch: what training's renders
    give the bank) and R = 1280 (64 streams' rows), and the harmonic-bank
-   backward at R = 100 and R = 800.  For each: the error against the plain
-   version and, for the analysis kernels, both against a float64
-   evaluation of the plain chain; CUDA-event times of the kernel, the plain
-   version and the library yardstick (mean of 200 back-to-back calls, so
-   at small R they include the Python wrapper's dispatch); device time per
-   call of the kernel, the plain version and the library call, measured
-   the same way (``device_ms``: ``torch.profiler`` over 50 calls, every
-   GPU kernel of the window summed); the analysis wrappers' host time per
-   call; the bound reckoned from the shapes (float32 FMA).  The analysis
-   kernels are also checked, unprofiled, at ragged R = 1, 21, 1281 and at
-   fft_size 1024 (K = 513) for every R above;
+   backward at R = 100 and R = 800 (all four outputs, and the training
+   step's launch for d_aL and d_aR only).  For each: the error against the
+   plain version and both against a float64 evaluation of the plain
+   version (per output for the backward); CUDA-event times of the kernel,
+   the plain version and the library yardstick (mean of 200 back-to-back
+   calls, so at small R they include the Python wrapper's dispatch);
+   device time per call of the kernel, the plain version and the library
+   call, measured the same way (``device_ms``: ``torch.profiler`` over 50
+   calls, every GPU kernel of the window summed); each wrapper's host time
+   per call; the bound reckoned from the shapes (float32 FMA); once, the launch
+   floor (the device time of an in-place add on a one-element tensor).  The
+   analysis kernels are also checked, unprofiled, at ragged R = 1, 21, 1281
+   and at fft_size 1024 (K = 513) for every R above, and both bank kernels
+   at ragged (R, H, hop) (BANK_RAGGED_CASES);
 4. main path: ``VoiceChangerStream(device="cuda")`` at the default Config
    (full width, bf16 models, seeded perturbed weights) on 3 s of a seeded
    voiced/unvoiced signal in 100 ms chunks, then ``flush()``; checks the
@@ -87,6 +90,12 @@ KERNEL_ROWS = (20, TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES, 1280)
 ANALYSIS_KERNELS = ("power_spectrum", "envelope_cepstrum")
 RAGGED_CASES = tuple((1022, R) for R in (1, 21, 1281)) + tuple(
     (1024, R) for R in (1, 20, 21, 100, 800, 1280, 1281))
+# Both bank kernels at ragged (R, H, hop): one row, one past a row block,
+# one past the batch; one harmonic, one past a 32-group, the COMPAT 128,
+# the default 161; the default hop and one above 128 that is no multiple of
+# 32 (two sample chunks), checked but not profiled
+BANK_RAGGED_CASES = tuple((R, H, hop) for R in (1, 21, 801)
+                          for H in (1, 33, 128, 161) for hop in (120, 200))
 # CUDA vs CPU, one training step (float32 on both; cuBLAS/cuFFT/the kernels
 # vs MKL/pocketfft/the plain versions sum in other orders): the losses
 # relative; stage 1, stage 2 and the DDSP vocoder's gradients as a fraction
@@ -131,22 +140,28 @@ def device_ms(fn, iters: int = 50) -> float:
     """Device time of ``fn`` in ms per call: ``torch.profiler`` over
     ``iters`` back-to-back calls, every GPU kernel and copy of the window
     summed (one stream, so they do not overlap), divided by ``iters``.
-    Kernel and library call are measured the same way."""
+    Kernel and library call are measured the same way.  Every call
+    launches the same GPU work, so a window whose count of GPU events is
+    not a positive multiple of ``iters`` lost some (the profiler drops
+    events now and then, which reads too low): it is traced again, up to
+    five times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
-    if not times:
-        raise AssertionError("torch.profiler traced no GPU work")
-    return sum(times) / iters / 1e3
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if times and len(times) % iters == 0:
+            return sum(times) / iters / 1e3
+    raise AssertionError(f"torch.profiler traced {len(times)} GPU events "
+                         f"over {iters} calls, five times")
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -206,8 +221,7 @@ def kernel_phase(kname: str, R: int, n: int, case: Case,
     bounds = f"bound {b_ms:.5f} ms ({b_by}, float32 FMA)"
     lib_txt = (f"{lib_ms:.5f} ms (device {lib_dev:.5f} ms)"
                if lib_ms is not None else "n/a")
-    host = (f", wrapper host {host_us(case.kernel):.1f} us/call"
-            if kname in ANALYSIS_KERNELS else "")
+    host = f", wrapper host {host_us(case.kernel):.1f} us/call"
     print(line + f" | kernel {ms:.5f} ms (device {dev_ms:.5f} ms{host}), "
           f"plain {plain_ms:.5f} ms (device {plain_dev:.5f} ms), library "
           f"{lib_txt}, {bounds}")
@@ -231,6 +245,23 @@ class Case(NamedTuple):
     ref64: Callable | None       # the plain chain in float64
 
 
+def bank_inputs(R: int, H: int, hop: int, dev, rng):
+    """Seeded (aL, aR, phi, frac, g) of the harmonic bank on ``dev``: the
+    phase a random start plus a cumulative sum of per-sample advances."""
+    import torch
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    al, ar = t(rng.uniform(0, 0.1, (R, H))), t(rng.uniform(0, 0.1, (R, H)))
+    phi = t(rng.uniform(0, 2 * np.pi, (R, 1))
+            + np.cumsum(rng.uniform(0.02, 0.2, (R, hop)), axis=1))
+    frac = t((np.arange(hop) + 1.0) / hop)
+    g = t(rng.standard_normal((R, hop)) * 0.1)
+    return al, ar, phi, frac, g
+
+
 def kernel_cases(R: int, cfg, dev, rng, n: int | None = None):
     """{name: Case} on seeded inputs at the main path's widths with R
     rows; ``n`` overrides the analysis kernels' frame size."""
@@ -245,10 +276,7 @@ def kernel_cases(R: int, cfg, dev, rng, n: int | None = None):
     H, hop = cfg.dsp.num_harmonics, cfg.dsp.hop
     n = n or cfg.dsp.fft_size
     K = n // 2 + 1
-    al, ar = t(rng.uniform(0, 0.1, (R, H))), t(rng.uniform(0, 0.1, (R, H)))
-    phi = t(rng.uniform(0, 2 * np.pi, (R, 1))
-            + np.cumsum(rng.uniform(0.02, 0.2, (R, hop)), axis=1))
-    frac = t((np.arange(hop) + 1.0) / hop)
+    al, ar, phi, frac, _ = bank_inputs(R, H, hop, dev, rng)
     frames = t(rng.standard_normal((R, n)) * 0.3)
     P = analysis.power_spectrum_plain(frames, n).contiguous()
     f0 = rng.uniform(80, 300, R)
@@ -265,7 +293,9 @@ def kernel_cases(R: int, cfg, dev, rng, n: int | None = None):
             lambda: hb.harmonic_bank_plain(al, ar, phi, frac),
             None,
             4 * (2 * R * H + 2 * R * hop + hop),
-            6.0 * R * hop * H, None),
+            6.0 * R * hop * H,
+            lambda: hb.harmonic_bank_plain(al.double(), ar.double(),
+                                           phi.double(), frac.double())),
         "power_spectrum": Case(
             lambda: analysis.power_spectrum_fused(frames, n),
             lambda: analysis.power_spectrum_plain(frames, n),
@@ -284,26 +314,39 @@ def kernel_cases(R: int, cfg, dev, rng, n: int | None = None):
     }
 
 
-def bwd_case(R: int, cfg, dev, rng):
-    """(kernel call, plain call, bytes, flops) of the harmonic-bank backward
-    on seeded inputs at training's widths with R rows."""
-    import torch
+def bwd_case(R: int, cfg, dev, rng, H: int | None = None,
+             hop: int | None = None):
+    """(kernel call, plain call, bytes, flops, plain call in float64,
+    kernel call for d_aL and d_aR only) of the harmonic-bank backward on
+    seeded inputs with R rows, at training's widths unless ``H`` or ``hop``
+    is given.  flops: 7 FMAs per row, sample and harmonic (d_aL and d_aR
+    2, the sine and cosine recurrences 2, d_phi 2 with h aL and h aR
+    formed once per row, d_frac 1)."""
     from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
-                               device=dev)
-
-    H, hop = cfg.dsp.num_harmonics, cfg.dsp.hop
-    al, ar = t(rng.uniform(0, 0.1, (R, H))), t(rng.uniform(0, 0.1, (R, H)))
-    phi = t(rng.uniform(0, 2 * np.pi, (R, 1))
-            + np.cumsum(rng.uniform(0.02, 0.2, (R, hop)), axis=1))
-    frac = t((np.arange(hop) + 1.0) / hop)
-    g = t(rng.standard_normal((R, hop)) * 0.1)
+    H, hop = H or cfg.dsp.num_harmonics, hop or cfg.dsp.hop
+    al, ar, phi, frac, g = bank_inputs(R, H, hop, dev, rng)
     return (lambda: hb.harmonic_bank_bwd(al, ar, phi, frac, g),
             lambda: hb.harmonic_bank_bwd_plain(al, ar, phi, frac, g),
             4 * (4 * R * H + 4 * R * hop + hop),
-            15.0 * R * hop * H)
+            14.0 * R * hop * H,
+            lambda: hb.harmonic_bank_bwd_plain(al.double(), ar.double(),
+                                               phi.double(), frac.double(),
+                                               g.double()),
+            lambda: hb._bank_backward(al, ar, phi, frac, g, phase=False))
+
+
+def bank_ragged(R: int, H: int, hop: int, dev, rng) -> tuple[float, float]:
+    """Both bank kernels once at (R, H, hop) against their plain versions:
+    (forward error, worst backward output's error), each over the plain
+    output's peak."""
+    from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
+    al, ar, phi, frac, _ = bank_inputs(R, H, hop, dev, rng)
+    _, e_fwd = abs_rel_err(hb.harmonic_bank(al, ar, phi, frac),
+                           hb.harmonic_bank_plain(al, ar, phi, frac))
+    kern, plain, *_ = bwd_case(R, None, dev, rng, H=H, hop=hop)
+    e_bwd = max(abs_rel_err(k, p)[1] for k, p in zip(kern(), plain()))
+    return e_fwd, e_bwd
 
 
 def test_signal(seconds: float, fs: int, seed: int) -> np.ndarray:
@@ -583,6 +626,10 @@ def main() -> int:
     cfg = Config()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_ms(lambda: one.add_(1.0))
+    print(f"[kernel] launch floor: {floor_ms * 1e3:.2f} us device time per "
+          f"launch (in-place add on a one-element tensor)")
     record = {}
     for R in KERNEL_ROWS:
         for kname, case in kernel_cases(R, cfg, dev, rng).items():
@@ -593,10 +640,25 @@ def main() -> int:
         cases = kernel_cases(R, cfg, dev, rng, n=n)
         for kname in ANALYSIS_KERNELS:
             kernel_phase(kname, R, n, cases[kname], timed=False)
+    for R, H, hop in BANK_RAGGED_CASES:
+        e_fwd, e_bwd = bank_ragged(R, H, hop, dev, rng)
+        torch.cuda.synchronize()
+        ok = (e_fwd <= TOL["harmonic_bank"]
+              and e_bwd <= TOL["harmonic_bank_bwd"])
+        print(f"[kernel] bank R={R} H={H} hop={hop}: /peak forward "
+              f"{e_fwd:.3e}, backward {e_bwd:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"bank at R={R} H={H} hop={hop}: errors "
+                                 f"{e_fwd:.3e}, {e_bwd:.3e}")
     kname = "harmonic_bank_bwd"
+    names = ("d_aL", "d_aR", "d_phi", "d_frac")
     for R in (TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES):
-        kern, plain, nbytes, nflops = bwd_case(R, cfg, dev, rng)
-        errs = [abs_rel_err(k, p) for k, p in zip(kern(), plain())]
+        kern, plain, nbytes, nflops, plain64, amps_only = bwd_case(
+            R, cfg, dev, rng)
+        outs, refs, ref64 = kern(), plain(), plain64()
+        errs = [abs_rel_err(k, p) for k, p in zip(outs, refs)]
+        e_k64 = [abs_rel_err(k.double(), x)[1] for k, x in zip(outs, ref64)]
+        e_p64 = [abs_rel_err(p.double(), x)[1] for p, x in zip(refs, ref64)]
         torch.cuda.synchronize()
         err_abs = max(e[0] for e in errs)
         err = max(e[1] for e in errs)
@@ -604,20 +666,54 @@ def main() -> int:
         ms, plain_ms = time_ms(kern), time_ms(plain)
         dev_ms, plain_dev = device_ms(kern), device_ms(plain)
         b_ms, b_by = bound_ms(nbytes, nflops)
-        print(f"[kernel] {kname} R={R}: /peak d_aL {errs[0][1]:.3e} d_aR "
-              f"{errs[1][1]:.3e} d_phi {errs[2][1]:.3e} d_frac "
-              f"{errs[3][1]:.3e} (tol {TOL[kname]:g}) "
-              f"{'ok' if ok else 'FAIL'} | kernel {ms:.5f} ms (device "
-              f"{dev_ms:.5f} ms), plain {plain_ms:.5f} ms (device "
-              f"{plain_dev:.5f} ms), library n/a, bound {b_ms:.5f} ms "
-              f"({b_by})")
+        # the first design's count, 15 FLOP, for comparison with its bound
+        first_ms, _ = bound_ms(nbytes, nflops * 15.0 / 14.0)
+        print(f"[kernel] {kname} R={R}: /peak "
+              + " ".join(f"{nm} {e[1]:.3e}" for nm, e in zip(names, errs))
+              + f" (tol {TOL[kname]:g}) {'ok' if ok else 'FAIL'} | vs "
+              f"float64 /peak kernel / plain: "
+              + ", ".join(f"{nm} {a:.3e} / {b:.3e}"
+                          for nm, a, b in zip(names, e_k64, e_p64))
+              + f" | kernel {ms:.5f} ms (device {dev_ms:.5f} ms, wrapper "
+              f"host {host_us(kern):.1f} us/call), plain {plain_ms:.5f} ms "
+              f"(device {plain_dev:.5f} ms), library n/a, bound {b_ms:.5f} "
+              f"ms ({b_by}, 14 FLOP; {first_ms:.5f} ms at the first "
+              f"design's count of 15)")
         if not ok:
             raise AssertionError(f"{kname} R={R}: error {err:.3e} above "
                                  f"{TOL[kname]:g}")
+        # the launch a training step makes: d_aL and d_aR only (autograd
+        # asks for no phase or frac gradient), held against the same plain
+        # outputs and bound by its own operations and bytes (2 FMAs and a
+        # recurrence per row, sample, harmonic: 6 FLOP; no d_phi, d_frac)
+        a_outs = amps_only()[:2]
+        a_errs = [abs_rel_err(k, p)[1] for k, p in zip(a_outs, refs)]
+        a_k64 = [abs_rel_err(k.double(), x)[1]
+                 for k, x in zip(a_outs, ref64)]
+        torch.cuda.synchronize()
+        a_ok = max(a_errs) <= TOL[kname]
+        amps_ms = device_ms(amps_only)
+        H, hop = cfg.dsp.num_harmonics, cfg.dsp.hop
+        a_ms, a_by = bound_ms(4 * (4 * R * H + 2 * R * hop + hop),
+                              6.0 * R * hop * H)
+        print(f"[kernel] {kname} R={R} d_aL and d_aR only (the training "
+              f"step's launch): /peak "
+              + " ".join(f"{nm} {e:.3e}" for nm, e in zip(names, a_errs))
+              + f" (tol {TOL[kname]:g}) {'ok' if a_ok else 'FAIL'} | vs "
+              f"float64 /peak kernel / plain: "
+              + ", ".join(f"{nm} {a:.3e} / {b:.3e}"
+                          for nm, a, b in zip(names, a_k64, e_p64))
+              + f" | device {amps_ms:.5f} ms, host "
+              f"{host_us(amps_only):.1f} us/call, bound {a_ms:.5f} ms "
+              f"({a_by})")
+        if not a_ok:
+            raise AssertionError(f"{kname} R={R} d_aL and d_aR only: error "
+                                 f"{max(a_errs):.3e} above {TOL[kname]:g}")
         record[kname] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              device_ms=dev_ms, plain_device_ms=plain_dev,
-                             library_device_ms=None)
+                             library_device_ms=None,
+                             amplitudes_only_device_ms=amps_ms)
 
     # 4. the main path at full width, bf16 models
     params = seeded_params(cfg)

@@ -98,15 +98,18 @@ class CudaKernel:
         self.launches += 1
 
 
+# the bank kernels' ints after (R, H, hop): their tiling,
+# ops/harmonic_bank.py:BankPlan.launch_args
 HARMONIC_BANK = CudaKernel(
-    "harmonic_bank", (_P, _P, _P, _P, _P, _I, _I, _I, _P))
+    "harmonic_bank", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P))
 POWER_SPECTRUM = CudaKernel(
     "power_spectrum", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P))
 ENVELOPE_CEPSTRUM = CudaKernel(
     "envelope_cepstrum", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
                           _P))
 HARMONIC_BANK_BWD = CudaKernel(
-    "harmonic_bank_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P))
+    "harmonic_bank_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P))
 KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM,
            HARMONIC_BANK_BWD)
 

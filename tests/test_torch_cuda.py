@@ -81,14 +81,99 @@ def test_analysis_kernels_agree_on_every_one_of_many_calls(device, R):
 
 @pytest.mark.parametrize("R", [100, 800])
 def test_harmonic_bank_bwd_matches_plain_version(device, R):
-    kernel, plain, _, _ = chip_smoke.bwd_case(R, Config(), device,
-                                              np.random.default_rng(R))
+    kernel, plain, *_ = chip_smoke.bwd_case(R, Config(), device,
+                                            np.random.default_rng(R))
     before = cuda.HARMONIC_BANK_BWD.launches
     for k, p in zip(kernel(), plain()):
         _, err = chip_smoke.abs_rel_err(k, p)
         assert err <= chip_smoke.TOL["harmonic_bank_bwd"], err
     torch.cuda.synchronize()
     assert cuda.HARMONIC_BANK_BWD.launches == before + 1
+
+
+@pytest.mark.parametrize("R", [100, 800])
+def test_bank_backward_amplitudes_only_matches_plain_version(device, R):
+    """The launch a training step makes (the phase and frac need no
+    gradient): d_aL and d_aR only, within tolerance of the plain version,
+    one launch, no d_phi or d_frac."""
+    from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
+    cfg = Config()
+    al, ar, phi, frac, g = chip_smoke.bank_inputs(
+        R, cfg.dsp.num_harmonics, cfg.dsp.hop, device,
+        np.random.default_rng(R))
+    before = cuda.HARMONIC_BANK_BWD.launches
+    d_al, d_ar, d_phi, d_frac = hb._bank_backward(al, ar, phi, frac, g,
+                                                  phase=False)
+    p_al, p_ar, _, _ = hb.harmonic_bank_bwd_plain(al, ar, phi, frac, g)
+    torch.cuda.synchronize()
+    assert d_phi is None and d_frac is None
+    for k, p in ((d_al, p_al), (d_ar, p_ar)):
+        _, err = chip_smoke.abs_rel_err(k, p)
+        assert err <= chip_smoke.TOL["harmonic_bank_bwd"], err
+    assert cuda.HARMONIC_BANK_BWD.launches == before + 1
+
+
+@pytest.mark.parametrize("R,H,hop", chip_smoke.BANK_RAGGED_CASES)
+def test_bank_kernels_at_ragged_shapes(device, R, H, hop):
+    """Both bank kernels at ragged rows, harmonics (one, one past a
+    32-group, the COMPAT 128, 161) and hops (120, and 200: two sample
+    chunks), one launch each, within tolerance of the plain versions."""
+    before = (cuda.HARMONIC_BANK.launches, cuda.HARMONIC_BANK_BWD.launches)
+    e_fwd, e_bwd = chip_smoke.bank_ragged(R, H, hop, device,
+                                          np.random.default_rng(R + H + hop))
+    torch.cuda.synchronize()
+    assert e_fwd <= chip_smoke.TOL["harmonic_bank"], e_fwd
+    assert e_bwd <= chip_smoke.TOL["harmonic_bank_bwd"], e_bwd
+    assert (cuda.HARMONIC_BANK.launches,
+            cuda.HARMONIC_BANK_BWD.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_bank_wrappers_raise_for_what_the_kernels_do_not_take(device):
+    """More harmonics than a block's shared memory holds: on CUDA tensors
+    both wrappers raise before they launch (the plain versions would take
+    them)."""
+    from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
+    a = torch.zeros((3, 20000), device=device)
+    phi = torch.zeros((3, 120), device=device)
+    frac = torch.zeros(120, device=device)
+    before = (cuda.HARMONIC_BANK.launches, cuda.HARMONIC_BANK_BWD.launches)
+    with pytest.raises(ValueError):
+        hb.harmonic_bank(a, a, phi, frac)
+    with pytest.raises(ValueError):
+        hb.harmonic_bank_bwd(a, a, phi, frac, phi)
+    assert (cuda.HARMONIC_BANK.launches,
+            cuda.HARMONIC_BANK_BWD.launches) == before
+
+
+@pytest.mark.parametrize("R", [20, 800])
+def test_bank_kernels_agree_on_every_one_of_many_calls(device, R):
+    """1000 back-to-back calls of each bank kernel at the streaming and
+    training widths, every output of every call within tolerance of the
+    plain version.  A row's segment warps add their partial sums in shared
+    memory; a missing barrier there shows only now and then, as a call
+    that disagrees."""
+    from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
+    cfg = Config()
+    al, ar, phi, frac, g = chip_smoke.bank_inputs(
+        R, cfg.dsp.num_harmonics, cfg.dsp.hop, device,
+        np.random.default_rng(R))
+    checks = {
+        "harmonic_bank": (lambda: (hb.harmonic_bank(al, ar, phi, frac),),
+                          (hb.harmonic_bank_plain(al, ar, phi, frac),)),
+        "harmonic_bank_bwd": (
+            lambda: hb.harmonic_bank_bwd(al, ar, phi, frac, g),
+            hb.harmonic_bank_bwd_plain(al, ar, phi, frac, g)),
+    }
+    for name, (kernel, plain) in checks.items():
+        peaks = [p.abs().max() for p in plain]
+        errs = torch.stack([
+            torch.stack([(o - p).abs().max() / pk
+                         for o, p, pk in zip(kernel(), plain, peaks)]).max()
+            for _ in range(1000)])
+        torch.cuda.synchronize()
+        worst = float(errs.max())
+        assert worst <= chip_smoke.TOL[name], (
+            name, worst, int((errs > chip_smoke.TOL[name]).sum()))
 
 
 def test_training_step_through_the_kernels_matches_cpu(device):

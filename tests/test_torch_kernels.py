@@ -25,6 +25,7 @@ from realtime_yukarin_tpu.ops.pallas_synth import (
     harmonic_bank_xla as j_hbx)
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
 from realtime_yukarin_tpu_torch.ops import analysis, cuda, dft
+from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
 from realtime_yukarin_tpu_torch.ops.harmonic_bank import (
     harmonic_bank, harmonic_bank_bwd, harmonic_bank_bwd_plain,
     harmonic_bank_plain)
@@ -378,3 +379,119 @@ def test_kernel_build_targets_hopper_without_fast_math():
         src = (cuda.PACKAGE_DIR.parent / k.source).read_text()
         assert f'extern "C" int {k.name}_forward' in src
         assert "Replaces:" in src and "Bound on an H100" in src
+
+
+BANK_SHAPES = [(R, H, hop) for R in (1, 20, 21, 100, 800, 801)
+               for H in (1, 31, 33, 128, 161) for hop in (20, 120, 200)]
+
+
+def _check_slots(plan, R, H, hop, backward):
+    """Every (row, harmonic) stored by exactly one (block, warp, lane);
+    every (row, sample) read once by each segment of its row and written
+    once by its segment-0 warps; segments on 32-group boundaries tiling
+    [0, H); the block within the launchers' limits."""
+    assert plan.samples_per_lane in hb.SAMPLES_PER_LANE
+    assert 1 <= plan.warps <= hb.MAX_WARPS[backward]
+    assert plan.segments <= max(1, H // hb.GROUP)
+    assert (plan.sample_warps - 1) * plan.chunk < hop
+    assert backward or plan.segments == 1
+    assert not backward or plan.sample_warps == plan.rows_per_block == 1
+    assert plan.smem_bytes(H, backward) <= hb.SMEM_BYTES
+    bounds = hb.segment_bounds(H, plan.segments)
+    assert all(h0 % hb.GROUP == 0 and h0 < h1 for h0, h1 in bounds)
+    assert _covered_once(bounds, H)
+    slots = plan.slots(R, H, hop)
+    stored = sorted((r, h) for r, h, *_ in slots["harmonic"])
+    assert stored == [(r, h) for r in range(R) for h in range(H)]
+    assert len({s[2:] + (s[1] // hb.GROUP,) for s in slots["harmonic"]}) \
+        == len(stored)
+    reads = sorted((r, seg, n) for r, seg, n, *_ in slots["sample"])
+    assert reads == [(r, seg, n) for r in range(R)
+                     for seg in range(plan.segments) for n in range(hop)]
+    assert len({s[3:] for s in slots["sample"]}) == len(reads)
+    writes = sorted((r, n) for r, n, *_ in slots["write"])
+    assert writes == [(r, n) for r in range(R) for n in range(hop)]
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("R,H,hop", BANK_SHAPES)
+def test_bank_plan_covers_every_harmonic_and_sample_once(R, H, hop,
+                                                         backward):
+    """As the bank kernels lay the work out (bank_plan's tiling)."""
+    _check_slots(hb.bank_plan(R, H, hop, backward=backward), R, H, hop,
+                 backward)
+
+
+SPLIT_PLANS = [(hb.BankPlan(1, 1, 4, 2), False),
+               (hb.BankPlan(2, 1, 2, 4), False),
+               (hb.BankPlan(4, 1, 1, 8), False),
+               (hb.BankPlan(2, 5, 1, 1), True),
+               (hb.BankPlan(4, 3, 1, 1), True)]
+
+
+@pytest.mark.parametrize("plan,backward,R,hop", [
+    (plan, backward, R, hop) for plan, backward in SPLIT_PLANS
+    for R, hop in ((21, 120), (3, 200))
+    if (plan.sample_warps - 1) * plan.chunk < hop])
+def test_split_plans_cover_every_harmonic_and_sample_once(plan, backward, R,
+                                                          hop):
+    """Tilings bank_plan does not choose at these shapes but the launchers
+    take, as the sweep in tools/torch_bank_ab.py launches them: the same
+    coverage at H = 161."""
+    _check_slots(plan, R, 161, hop, backward)
+
+
+def test_bank_plans_at_the_main_paths_widths():
+    """The tilings the sweep on the card chose: the forward gives each
+    32-sample chunk of a streaming step's 20 rows its own warp and takes 4
+    samples per lane at training's 800 rows; the backward splits a row's
+    161 harmonics into 5 segments at 20 rows, 3 at 100, none at 800."""
+    assert hb.bank_plan(20, 161, 120) == hb.BankPlan(1, 1, 4, 1)
+    assert hb.bank_plan(100, 161, 120) == hb.BankPlan(1, 1, 4, 1)
+    assert hb.bank_plan(800, 161, 120) == hb.BankPlan(4, 1, 1, 4)
+    assert hb.bank_plan(1280, 161, 120) == hb.BankPlan(4, 1, 1, 4)
+    assert [hb.bank_plan(R, 161, 120, backward=True).segments
+            for R in (20, 100, 800)] == [5, 3, 1]
+    assert hb.bank_plan(800, 161, 120, backward=True) == \
+        hb.BankPlan(4, 1, 1, 1)
+
+
+def test_bank_wrappers_refuse_shapes_the_kernels_do_not_take():
+    """No harmonics or no samples: both plans and both wrappers raise, on
+    the CPU too.  More harmonics than a block's shared memory holds: both
+    plans raise (the wrappers plan on CUDA tensors only, so a CUDA call
+    raises before it launches; the plain versions take any H)."""
+    for R, H, hop in ((3, 0, 120), (3, 8, 0), (3, 20000, 120)):
+        for backward in (False, True):
+            with pytest.raises(ValueError):
+                hb.bank_plan(R, H, hop, backward=backward)
+        if H > 8:
+            continue
+        a = torch.zeros((R, H))
+        phi = torch.zeros((R, hop))
+        with pytest.raises(ValueError):
+            harmonic_bank(a, a, phi, torch.zeros(hop))
+        with pytest.raises(ValueError):
+            harmonic_bank_bwd(a, a, phi, torch.zeros(hop), phi)
+
+
+def test_bank_launchers_take_the_plan():
+    """The ctypes signatures carry the plan's ints after (R, H, hop), as
+    BankPlan.launch_args orders them, and the sources' constants are the
+    plan's."""
+    plan = hb.bank_plan(20, 161, 120)
+    for k, backward, n_ptr in ((cuda.HARMONIC_BANK, False, 5),
+                               (cuda.HARMONIC_BANK_BWD, True, 9)):
+        n_int = 3 + len(plan.launch_args(backward))
+        assert k.argtypes == (cuda._P,) * n_ptr + (cuda._I,) * n_int + \
+            (cuda._P,)
+        src = (cuda.CSRC_DIR / f"{k.name}.cu").read_text()
+        built = {int(x) for x in re.findall(r"case (\d+):", src)}
+        assert built == set(hb.SAMPLES_PER_LANE)
+        c = _constexprs(k.name)
+        assert (c["WARP"], c["MAX_WARPS"], c["N_CONST"], c["PAD"]) == (
+            hb.WARP, hb.MAX_WARPS[backward], hb.N_CONST[backward],
+            hb.CAP_PAD)
+        if backward:
+            assert c["GROUP"] == hb.GROUP
+            assert hb.RED_FLOATS[True] == c["GROUP"] * (2 * c["WARP"] + 4)
