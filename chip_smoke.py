@@ -13,8 +13,10 @@ non-zero):
 3. kernels: each forward kernel against its plain PyTorch version on the
    card at R = 20 rows (one streaming step), R = 100 (one utterance of a
    training batch: what ``make_batch``'s analysis gives the power spectrum
-   and the envelope cepstrum), R = 800 (the batch: what training's renders
-   give the bank) and R = 1280 (64 streams' rows), and the harmonic-bank
+   and the envelope cepstrum), R = 600 (an offline conversion of 3 s: what
+   its analysis and render give all three), R = 800 (the batch: what
+   training's renders give the bank) and R = 1280 (64 streams' rows), and
+   the harmonic-bank
    backward at R = 100 and R = 800 (all four outputs, and the training
    step's launch for d_aL and d_aR only).  For each: the error against the
    plain version and both against a float64 evaluation of the plain
@@ -45,8 +47,21 @@ non-zero):
    cuDNN with TF32 off) and on the CPU (the plain versions), same weights,
    same batch of 2; the wave decoder's leaves are held at the CUDA step's
    own loss cotangent (see PARITY_WAVE_TOL);
-8. the kernels line: one JSON object with every kernel's numbers;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. offline: ``pipeline.offline_convert(device="cuda")`` on the same 3 s
+   in the dsp, ddsp and wave modes (bf16, vocoder heads perturbed too):
+   output checks, wall time and x realtime, each forward kernel's launches
+   (the analysis sends all R = 600 frames to kernels 2 and 3 in one launch
+   each, the render all 600 to the bank; phase 3 timed each at R = 600);
+   CUDA vs CPU in float32 per mode with identical voicing;
+9. streamed == offline on the card: ``VoiceChangerStream`` against
+   ``offline_convert`` in float32 in all three modes, on the interior;
+10. the ddsp and wave streaming modes and a 48 kHz in / 48 kHz out client
+   (bf16): per-chunk p50 / p99, x realtime and each forward kernel's
+   launches against the step count;
+11. the analysis kernels at the ragged R = 601 (an offline analysis one
+   frame longer) against their plain versions;
+12. the kernels line: one JSON object with every kernel's numbers;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is not available or the port's
 package is missing.  Imports nothing of JAX.
@@ -81,9 +96,13 @@ REPLACES = {
     "harmonic_bank_bwd": "realtime_yukarin_tpu/ops/pallas_synth.py:101",
 }
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 100, 3
+# frames of one offline conversion of SECONDS at the default 24 kHz, hop 120
+OFFLINE_FRAMES = int(SECONDS * 24000) // 120
 # Forward kernels' row counts in phase 3: streaming step, one utterance of
-# a training batch (the analysis), the batch (the bank), 64 streams
-KERNEL_ROWS = (20, TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES, 1280)
+# a training batch (the analysis), an offline conversion (all three), the
+# batch (the bank), 64 streams
+KERNEL_ROWS = (20, TRAIN_FRAMES, OFFLINE_FRAMES, TRAIN_BATCH * TRAIN_FRAMES,
+               1280)
 # The analysis kernels also at ragged row counts (one row, one past a row
 # group, one past 64 streams) and at fft_size 1024 (K = 513, the COMPAT
 # configuration), checked but not profiled
@@ -117,6 +136,15 @@ PARITY_GRAD_TOL = {"stage1": 1e-4, "stage2": 1e-4, "vocoder": 2e-3}
 # 1.7e-3 (the same tool and this script on an H100 80GB HBM3; PERF.md).
 PARITY_WAVE_TOL = {"frac_ratios": 1e-2}
 PARITY_WAVE_LEAF_TOL = 1e-3
+VOCODER_MODES = ("dsp", "ddsp", "wave")
+# scale of the seeded noise on the neural vocoders' leaves in phases 8-10
+# (tests/test_streaming.py's, which makes the wave residual active)
+VOCODER_PERTURB = 1e-2
+# streamed == offline on the interior, of the offline output's peak: the
+# JAX package's tolerances (tests/test_streaming.py; wave 3e-3)
+STREAM_OFFLINE_TOL = {"dsp": 2e-3, "ddsp": 2e-3, "wave": 3e-3}
+CLIENT_RATE = 48000
+FORWARD_KERNELS = ("harmonic_bank", "power_spectrum", "envelope_cepstrum")
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -386,6 +414,20 @@ def seeded_params(cfg):
     return params
 
 
+def vocoder_params(cfg):
+    """``seeded_params`` with both neural vocoders' leaves perturbed by
+    VOCODER_PERTURB too, so the DDSP control net and the wave residual
+    are active."""
+    import torch
+    params = seeded_params(cfg)
+    gen = torch.Generator().manual_seed(SEED + 3)
+    with torch.no_grad():
+        for net in (params["vocoder"], params["vocoder_wave"]):
+            for p in net.parameters():
+                p.add_(VOCODER_PERTURB * torch.randn(p.shape, generator=gen))
+    return params
+
+
 def perturbed_training_params(cfg):
     """The port's init_params with every leaf of every network perturbed
     by seeded noise, so gradients reach every layer through the heads."""
@@ -556,20 +598,19 @@ def train_parity(cfg, dev) -> dict:
     return out
 
 
-def run_stream(params, cfg, x, device):
+def run_stream(params, cfg, x, device, vocoder_mode=None):
     """Feed ``x`` chunk by chunk, then flush.  Returns (output trimmed to
     the input timeline, per-chunk seconds, voicing per step, steps)."""
-    import torch
     from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
-    stream = VoiceChangerStream(params, cfg, seed=SEED, device=device)
+    stream = VoiceChangerStream(params, cfg, seed=SEED, device=device,
+                                vocoder_mode=vocoder_mode)
     S = stream.chunk_samples
     outs, secs, voicing = [], [], []
     for k in range(len(x) // S):
         t0 = time.perf_counter()
         stream.add(x[k * S: (k + 1) * S])
         outs.append(stream.process())
-        if device != "cpu":
-            torch.cuda.synchronize()
+        sync(device)
         secs.append(time.perf_counter() - t0)
         voicing.append(stream.final_f0() > 0)
     tail = stream.flush()
@@ -577,6 +618,162 @@ def run_stream(params, cfg, x, device):
     y = np.concatenate(outs + [tail])
     lat = stream.latency_samples
     return y[lat: lat + len(x)], np.asarray(secs), np.stack(voicing), steps
+
+
+def launch_counts() -> dict:
+    from realtime_yukarin_tpu_torch.ops import cuda
+    return {k.name: k.launches for k in cuda.KERNELS}
+
+
+def require_launches(label: str, launches: dict, at_least: int) -> None:
+    """Raise unless every forward kernel launched ``at_least`` times."""
+    short = {k: launches[k] for k in FORWARD_KERNELS
+             if launches[k] < at_least}
+    if short:
+        raise AssertionError(f"{label}: kernels launched fewer than "
+                             f"{at_least} times: {short}")
+
+
+def sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def offline_phase(cfg, params, x, dev) -> dict:
+    """Phase 8: offline_convert on ``dev`` in every vocoder mode (bf16),
+    then ``dev`` vs the CPU in float32.  Returns {mode: launches}."""
+    from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.pipeline import (offline_analyze,
+                                                     offline_convert)
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        noise_key_from_seed)
+
+    hop = cfg.dsp.hop
+    F = len(x) // hop
+    key = noise_key_from_seed(SEED)
+    p_dev = params_to(params, dev)
+    seconds = len(x) / cfg.dsp.sample_rate
+    launches = {}
+    for mode in VOCODER_MODES:
+        t0 = time.perf_counter()
+        offline_convert(p_dev, x, key, cfg, F, vocoder_mode=mode,
+                        device=dev)
+        sync(dev)
+        first = time.perf_counter() - t0
+        walls = []
+        for rep in range(3):
+            if rep == 2:
+                cuda.reset_counts()
+            t0 = time.perf_counter()
+            y = offline_convert(p_dev, x, key, cfg, F, vocoder_mode=mode,
+                                device=dev).cpu().numpy()
+            walls.append(time.perf_counter() - t0)
+            if rep == 2:
+                launches[mode] = launch_counts()
+        wall = float(np.median(walls))
+        rms = float(np.sqrt(np.mean(y ** 2)))
+        print(f"[offline] {mode}: {F} frames, out {y.shape[0]} samples, "
+              f"finite={bool(np.isfinite(y).all())}, rms {rms:.4f} | wall "
+              f"{wall * 1e3:.2f} ms (median of 3; first call "
+              f"{first * 1e3:.1f} ms), x{seconds / wall:.1f} realtime | "
+              f"launches {launches[mode]}")
+        if y.shape != (F * hop,) or not np.isfinite(y).all() or rms < 1e-3:
+            raise AssertionError(f"offline {mode}: output wrong-sized, "
+                                 f"non-finite or silent")
+        require_launches(f"offline {mode}", launches[mode], 1)
+    # CUDA vs CPU, float32 models
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p_cpu = params_to(params, "cpu")
+    vc = offline_analyze(x, cfg32, F, device=dev).f0.cpu().numpy() > 0
+    vh = offline_analyze(x, cfg32, F, device="cpu").f0.numpy() > 0
+    same_voicing = bool((vc == vh).all())
+    fails = [] if same_voicing else ["voicing"]
+    for mode in VOCODER_MODES:
+        yc = offline_convert(p_dev, x, key, cfg32, F, vocoder_mode=mode,
+                             device=dev).cpu().numpy()
+        yh = offline_convert(p_cpu, x, key, cfg32, F, vocoder_mode=mode,
+                             device="cpu").numpy()
+        err = float(np.abs(yc - yh).max() / (np.abs(yh).max() + 1e-9))
+        print(f"[offline-parity] {mode} cuda vs cpu: max_err/peak="
+              f"{err:.3e} (tol 2e-3), voicing identical={same_voicing} "
+              f"({int(vh.sum())} voiced of {vh.size} frames)")
+        if err > 2e-3:
+            fails.append(mode)
+    if fails:
+        raise AssertionError(f"offline CUDA and CPU disagree: {fails}")
+    return launches
+
+
+def stream_vs_offline_phase(cfg, params, x, dev) -> None:
+    """Phase 9: in float32 on ``dev``, the streamed output of each
+    vocoder mode against offline_convert on the interior; the wave
+    residual is checked to be active."""
+    from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+    from realtime_yukarin_tpu_torch.pipeline import offline_convert
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        noise_key_from_seed)
+    from realtime_yukarin_tpu_torch.streaming.state import StreamGeometry
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    hop = cfg.dsp.hop
+    F = len(x) // hop
+    p_dev = params_to(params, dev)
+    offline = {}
+    fails = []
+    for mode in VOCODER_MODES:
+        offline[mode] = offline_convert(
+            p_dev, x, noise_key_from_seed(SEED), cfg32, F,
+            vocoder_mode=mode, device=dev).cpu().numpy()
+        streamed = run_stream(params, cfg32, x, dev, mode)[0]
+        geo = StreamGeometry.from_config(cfg32, vocoder_mode=mode)
+        lo, hi = ((geo.model_ctx + 2) * hop, (F - geo.model_ctx - 2) * hop)
+        a, b = offline[mode][lo:hi], streamed[lo:hi]
+        err = float(np.abs(b - a).max() / (np.abs(a).max() + 1e-9))
+        tol = STREAM_OFFLINE_TOL[mode]
+        print(f"[stream-offline] {mode}: streamed vs offline on samples "
+              f"[{lo}, {hi}): max_err/peak={err:.3e} (tol {tol:g})")
+        if err > tol:
+            fails.append(mode)
+    residual = float(np.abs(offline["wave"] - offline["dsp"]).max())
+    print(f"[stream-offline] wave residual max |wave - dsp| = "
+          f"{residual:.3e} (must exceed 1e-3)")
+    if residual <= 1e-3:
+        fails.append("wave residual inactive")
+    if fails:
+        raise AssertionError(f"streamed != offline on the card: {fails}")
+
+
+def streams_phase(cfg, params, dev) -> dict:
+    """Phase 10: the ddsp and wave streaming modes and a CLIENT_RATE in /
+    out client (bf16) on ``dev``.  Returns {label: launches}."""
+    from realtime_yukarin_tpu_torch.ops import cuda
+    rate_cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
+        cfg.dsp, input_rate=CLIENT_RATE, output_rate=CLIENT_RATE))
+    runs = (("ddsp", cfg, "ddsp"), ("wave", cfg, "wave"),
+            (f"{CLIENT_RATE // 1000} kHz client", rate_cfg, None))
+    launches = {}
+    for label, c, mode in runs:
+        x = test_signal(SECONDS, c.dsp.in_rate, SEED)
+        cuda.reset_counts()
+        y, secs, _, steps = run_stream(params, c, x, dev, mode)
+        launches[label] = launch_counts()
+        chunk_s = c.streaming.chunk_samples(c.dsp) / c.dsp.sample_rate
+        p50, p99 = (float(np.percentile(secs[1:], q)) for q in (50, 99))
+        rms = float(np.sqrt(np.mean(y ** 2)))
+        print(f"[streams] {label}: {steps} steps, out {y.shape[0]} samples "
+              f"(in {x.shape[0]}), finite={bool(np.isfinite(y).all())}, "
+              f"rms {rms:.4f}, launches {launches[label]}")
+        print(f"[streams] {label}: chunk wall time p50 {p50 * 1e3:.3f} ms "
+              f"p99 {p99 * 1e3:.3f} ms (first chunk {secs[0] * 1e3:.1f} "
+              f"ms), x{chunk_s / p50:.1f} realtime for one stream at p50")
+        if (y.shape[0] != x.shape[0] or not np.isfinite(y).all()
+                or rms < 1e-3):
+            raise AssertionError(f"{label} stream output is wrong-sized, "
+                                 f"non-finite or silent")
+        require_launches(label, launches[label], steps)
+    return launches
 
 
 def main() -> int:
@@ -631,11 +828,14 @@ def main() -> int:
     print(f"[kernel] launch floor: {floor_ms * 1e3:.2f} us device time per "
           f"launch (in-place add on a one-element tensor)")
     record = {}
+    offline_rec = {}
     for R in KERNEL_ROWS:
         for kname, case in kernel_cases(R, cfg, dev, rng).items():
             rec = kernel_phase(kname, R, cfg.dsp.fft_size, case)
             if R == 20:
                 record[kname] = rec
+            if R == OFFLINE_FRAMES:
+                offline_rec[kname] = rec
     for n, R in RAGGED_CASES:
         cases = kernel_cases(R, cfg, dev, rng, n=n)
         for kname in ANALYSIS_KERNELS:
@@ -720,7 +920,7 @@ def main() -> int:
     x = test_signal(SECONDS, cfg.dsp.sample_rate, SEED)
     cuda.reset_counts()
     y, secs, _, steps = run_stream(params, cfg, x, "cuda")
-    launches = {k.name: k.launches for k in cuda.KERNELS}
+    launches = launch_counts()
     stream_kernels = (cuda.HARMONIC_BANK, cuda.POWER_SPECTRUM,
                       cuda.ENVELOPE_CEPSTRUM)
     rms = float(np.sqrt(np.mean(y ** 2)))
@@ -755,7 +955,7 @@ def main() -> int:
     # 6. training at full width, float32
     cuda.reset_counts()
     trained = train_phase(cfg, dev)
-    train_launches = {k.name: k.launches for k in cuda.KERNELS}
+    train_launches = launch_counts()
     n_train = trained["steps"]
     for objective, walls in trained["walls"].items():
         tail = walls[1:]
@@ -775,12 +975,54 @@ def main() -> int:
     # 7. training parity: CUDA vs CPU
     train_parity(cfg, dev)
 
-    # 8. kernels line (launches: the streaming run's plus the training
-    # run's), 9. result line
+    # 8. offline on the card; the forward kernels' numbers at its width
+    # (phase 3)
+    t0 = time.perf_counter()
+    voc_params = vocoder_params(cfg)
+    offline_launches = offline_phase(cfg, voc_params, x, dev)
+    F = len(x) // cfg.dsp.hop
+    for kname, rec in offline_rec.items():
+        print(f"[offline] {kname} at R={F} (phase 3): device "
+              f"{rec['device_ms'] * 1e3:.2f} us per launch, plain "
+              f"{rec['plain_device_ms'] * 1e3:.2f} us, library "
+              + (f"{rec['library_device_ms'] * 1e3:.2f} us"
+                 if rec["library_device_ms"] is not None else "n/a")
+              + f", bound {rec['bound_ms'] * 1e3:.3f} us")
+        record[kname].update(offline_rows=F,
+                             offline_device_ms=rec["device_ms"],
+                             offline_plain_device_ms=rec["plain_device_ms"],
+                             offline_library_device_ms=rec[
+                                 "library_device_ms"])
+    print(f"[offline] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 9. streamed == offline on the card, every vocoder mode
+    t0 = time.perf_counter()
+    stream_vs_offline_phase(cfg, voc_params, x, dev)
+    print(f"[stream-offline] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 10. the ddsp and wave streams and a 48 kHz client
+    t0 = time.perf_counter()
+    stream_launches = streams_phase(cfg, voc_params, dev)
+    print(f"[streams] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 11. the analysis kernels one row past the offline width
+    t0 = time.perf_counter()
+    cases = kernel_cases(F + 1, cfg, dev, rng)
+    for kname in ANALYSIS_KERNELS:
+        kernel_phase(kname, F + 1, cfg.dsp.fft_size, cases[kname],
+                     timed=False)
+    print(f"[kernel] ragged offline width: phase seconds "
+          f"{time.perf_counter() - t0:.1f}")
+
+    # 12. kernels line (launches: every path's run — the default stream,
+    # training, offline in each mode, the ddsp/wave/client-rate streams),
+    # 13. result line
+    paths = [launches, train_launches, *offline_launches.values(),
+             *stream_launches.values()]
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name],
-         "launches": launches[k.name] + train_launches[k.name],
+         "launches": sum(p[k.name] for p in paths),
          **record[k.name]} for k in cuda.KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": count}}))

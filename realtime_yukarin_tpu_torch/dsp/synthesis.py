@@ -177,7 +177,12 @@ def integrate_phase(f0f: torch.Tensor, voiced: torch.Tensor, cfg: DspConfig,
     f0f [..., F+1] filled instantaneous F0 (Hz, never 0); voiced [..., F+1]
     bool.  Frame-boundary phases follow boundary_i = phase_{i-1} if (v_i &
     v_{i-1}) else 0, evaluated as a prefix sum with segment resets (the
-    last reset at or before i is a running max of reset indices)."""
+    last reset at or before i is a running max of reset indices).
+
+    The prefix sum over frames runs in float64: over a whole utterance
+    (the offline render) it reaches thousands of radians, where a float32
+    sum rounds each boundary by ~1e-4 rad and harmonic h multiplies that by
+    h.  A streaming chunk's sum stays small either way."""
     F = f0f.shape[-1] - 1
     hop = cfg.hop
     fs = float(cfg.sample_rate)
@@ -193,21 +198,24 @@ def integrate_phase(f0f: torch.Tensor, voiced: torch.Tensor, cfg: DspConfig,
     idx = torch.arange(F, device=dev)
     reset_at = torch.where(cont, torch.full_like(idx, -1), idx)
     r = torch.cummax(reset_at, dim=-1).values                 # [..., F]
-    csum = torch.cat([torch.zeros((*cum.shape[:-2], 1), dtype=dtype,
+    f64 = torch.float64
+    csum = torch.cat([torch.zeros((*cum.shape[:-2], 1), dtype=f64,
                                   device=dev),
-                      torch.cumsum(cum[..., -1], dim=-1)], dim=-1)  # [.., F+1]
-    base = torch.where(r < 0, carry.phase.to(dtype)[..., None],
-                       torch.zeros((), dtype=dtype, device=dev))
+                      torch.cumsum(cum[..., -1].to(f64), dim=-1)],
+                     dim=-1)                                  # [.., F+1]
+    base = torch.where(r < 0, carry.phase.to(f64)[..., None],
+                       torch.zeros((), dtype=f64, device=dev))
     csum_r = torch.gather(csum, -1, torch.clamp(r, min=0))
     adv = csum[..., :F] - csum_r                              # [..., F]
     two_pi = 2.0 * math.pi
-    boundaries = torch.remainder(base + adv, two_pi)          # [..., F]
+    boundaries = torch.remainder(base + adv, two_pi).to(dtype)  # [..., F]
     adv_out = csum[..., F] - csum_r[..., F - 1]
     phase_out = torch.remainder(base[..., F - 1] + adv_out, two_pi)
     phi = boundaries[..., None] + cum                         # [..., F, hop]
     return PhaseTrack(phi=phi, boundaries=boundaries, frac=frac,
-                      phase_out=phase_out, vprev_out=v[..., F - 1],
-                      adv=adv, no_reset=r < 0, adv_out=adv_out,
+                      phase_out=phase_out.to(dtype),
+                      vprev_out=v[..., F - 1], adv=adv.to(dtype),
+                      no_reset=r < 0, adv_out=adv_out.to(dtype),
                       no_reset_out=r[..., F - 1] < 0)
 
 

@@ -20,9 +20,12 @@ import torch
 import torch.nn as nn
 
 from realtime_yukarin_tpu_torch.config import Config
-from realtime_yukarin_tpu_torch.models.acoustic import AcousticNet
+from realtime_yukarin_tpu_torch.dsp.mcep import decode_mcep
+from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature
+from realtime_yukarin_tpu_torch.models.acoustic import AcousticNet, convert_mc
 from realtime_yukarin_tpu_torch.models.initializers import init_module
-from realtime_yukarin_tpu_torch.models.super_resolution import SRNet
+from realtime_yukarin_tpu_torch.models.super_resolution import (
+    SRNet, refine_envelope)
 from realtime_yukarin_tpu_torch.models.vocoder_nn import VocoderControlNet
 from realtime_yukarin_tpu_torch.models.vocoder_wave import WaveDecoderNet
 
@@ -103,6 +106,50 @@ def convert_f0_stats(f0: torch.Tensor, stats: dict) -> torch.Tensor:
 def compute_dtype(cfg: Config) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
         else torch.float32
+
+
+def convert_features(params: dict, feat: AcousticFeature, cfg: Config,
+                     use_sr: bool = True, dtype=None) -> AcousticFeature:
+    """feature -> converted feature: F0 moment matching, stage-1 mc
+    mapping, mc -> envelope decode, stage-2 envelope super-resolution;
+    aperiodicity passes through.  Frame-major [T, ...] or [B, T, ...]."""
+    if dtype is None:
+        dtype = compute_dtype(cfg)
+    f0c = convert_f0_stats(feat.f0, params["f0_stats"])
+    mc_c = convert_mc(params["stage1"], feat.mc, feat.f0, cfg.acoustic,
+                      dtype)
+    env_low = decode_mcep(mc_c, cfg.dsp)
+    env_c = (refine_envelope(params["stage2"], env_low, cfg.super_resolution,
+                             cfg.dsp, dtype) if use_sr else env_low)
+    return AcousticFeature(f0=f0c, env=env_c, ap=feat.ap, mc=mc_c)
+
+
+def convert_window(params: dict, feat: AcousticFeature, cfg: Config,
+                   t0: int, out_frames: int, vocoder_halo: int = 0,
+                   use_sr: bool = True, dtype=None) -> AcousticFeature:
+    """:func:`convert_features` for window frames [t0 - vocoder_halo,
+    t0 + out_frames + vocoder_halo) only, each stage on the slice its
+    receptive field requires (SAME-padded convs equal the full-window
+    computation on any interior slice): super-resolution sees its own
+    ``context_frames`` halo around the range, stage 1 the whole window.
+    ``feat`` is [T, ...]."""
+    if dtype is None:
+        dtype = compute_dtype(cfg)
+    ctx_sr = cfg.super_resolution.context_frames if use_sr else 0
+    s = t0 - vocoder_halo
+    Lv = out_frames + 2 * vocoder_halo
+    f0c = convert_f0_stats(feat.f0, params["f0_stats"])
+    mc_c = convert_mc(params["stage1"], feat.mc, feat.f0, cfg.acoustic,
+                      dtype)
+    env_low = decode_mcep(mc_c[s - ctx_sr: s + Lv + ctx_sr], cfg.dsp)
+    if use_sr:
+        env_v = refine_envelope(params["stage2"], env_low,
+                                cfg.super_resolution, cfg.dsp,
+                                dtype)[ctx_sr: ctx_sr + Lv]
+    else:
+        env_v = env_low
+    return AcousticFeature(f0=f0c[s: s + Lv], env=env_v,
+                           ap=feat.ap[s: s + Lv], mc=mc_c[s: s + Lv])
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +257,51 @@ def save_params_npz(params: dict, path: str) -> None:
     np.savez(path, **params_to_jax(params))
 
 
+def _read_npz(path: str) -> dict:
+    if not str(path).endswith(".npz"):
+        raise ValueError(
+            f"{path}: the port reads parameters in the JAX package's .npz "
+            f"layout only (written by `cli.train --export_params x.npz` of "
+            f"either package, or the JAX package's save_params(params, "
+            f"'x.npz')); msgpack snapshots need flax")
+    with np.load(path, allow_pickle=False) as d:
+        return dict(d)
+
+
 def load_params_npz(path: str, cfg: Config, device="cpu") -> dict:
     """Strict loader for the JAX package's ``.npz`` snapshots (see
     :func:`params_from_jax`)."""
-    with np.load(path, allow_pickle=False) as d:
-        return params_from_jax(dict(d), cfg, device)
+    return params_from_jax(_read_npz(path), cfg, device)
+
+
+def load_all_params(params: dict, cfg: Config,
+                    params_path: str | None = None) -> dict:
+    """Apply every params/statistics path the config names (plus an
+    explicit ``params_path``) to ``params``; returns new params on their
+    device, the caller's are left as they are.
+
+    Order (later wins): cfg.params_path (full tree) -> ``params_path``
+    (full tree) -> per-stage subtree files (stage1/stage2/vocoder/
+    vocoder_wave, each the ``flatten_params`` layout of that subtree) ->
+    the F0 statistics ``.npz`` files (``mean``, ``std``).  Every parameter
+    file is a strict ``.npz`` (a ``.msgpack`` path raises)."""
+    device = params["f0_stats"]["src_mean"].device
+    for full in (cfg.params_path, params_path):
+        if full:
+            params = load_params_npz(full, cfg, device)
+    params = params_to(params, device)
+    for key, path in (("stage1", cfg.stage1_params_path),
+                      ("stage2", cfg.stage2_params_path),
+                      ("vocoder", cfg.vocoder_params_path),
+                      ("vocoder_wave", cfg.vocoder_wave_params_path)):
+        if path:
+            load_flax(params[key], _read_npz(path))
+    for path, mean_key, std_key in (
+            (cfg.input_statistics_path, "src_mean", "src_std"),
+            (cfg.target_statistics_path, "tgt_mean", "tgt_std")):
+        if path:
+            with np.load(path, allow_pickle=False) as d:
+                for k, name in ((mean_key, "mean"), (std_key, "std")):
+                    params["f0_stats"][k] = torch.tensor(
+                        float(d[name]), dtype=torch.float32, device=device)
+    return params

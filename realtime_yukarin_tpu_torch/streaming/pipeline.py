@@ -1,11 +1,14 @@
 """The streaming step (PyTorch port of ``streaming/pipeline.py``).
 
-One chunk in, one chunk out: analysis of the newly final frames (the rest
-come from the carry's caches), stage-1 conversion through per-layer conv
-caches, F0 moment matching, mel-cepstrum decode, stage-2 super-resolution
-and the harmonic+noise renderer.  The three hand-written CUDA kernels of
-this path (power spectrum, envelope cepstrum, harmonic bank) run once per
-step each.  PyTorch runs eagerly; the step is a plain function of
+One chunk in, one chunk out: the client chunk resampled to the internal
+rate, analysis of the newly final frames (the rest come from the carry's
+caches), stage-1 conversion through per-layer conv caches, F0 moment
+matching, mel-cepstrum decode, stage-2 super-resolution, then one of the
+three synthesis stages (the DSP renderer, the DDSP control net over the
+same renderer, or the wave decoder's render + learned residual) and the
+output resampled to the client rate.  The three hand-written CUDA kernels
+of this path (power spectrum, envelope cepstrum, harmonic bank) run once
+per step each.  PyTorch runs eagerly; the step is a plain function of
 (params, carry, chunk) returning (output, next carry).
 
 Noise determinism: each frame's gaussian drivers are a fixed function of
@@ -21,23 +24,29 @@ import functools
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config
+from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
 from realtime_yukarin_tpu_torch.dsp.envelope import power_spectrogram
 from realtime_yukarin_tpu_torch.dsp.f0 import (f0_raw_and_candidates,
                                                viterbi_snap, voicing_revision)
 from realtime_yukarin_tpu_torch.dsp.framing import median3
 from realtime_yukarin_tpu_torch.dsp.mcep import decode_mcep
-from realtime_yukarin_tpu_torch.dsp.synthesis import synthesize
+from realtime_yukarin_tpu_torch.dsp.resample import resample_chunk
+from realtime_yukarin_tpu_torch.dsp.synthesis import render, synthesize
 from realtime_yukarin_tpu_torch.dsp.world import analyze_given_f0
 from realtime_yukarin_tpu_torch.models.acoustic import convert_mc_streamed
 from realtime_yukarin_tpu_torch.models.super_resolution import (
     refine_envelope)
+from realtime_yukarin_tpu_torch.models.vocoder_nn import (
+    neural_vocoder_controls)
+from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
 from realtime_yukarin_tpu_torch.models.voice_changer import (compute_dtype,
                                                              convert_f0_stats)
 from realtime_yukarin_tpu_torch.ops.dft import device_const
 from realtime_yukarin_tpu_torch.streaming.state import (StreamCarry,
                                                         StreamGeometry,
-                                                        noise_bins)
+                                                        input_plan,
+                                                        noise_bins,
+                                                        output_plan)
 
 NOISE_TABLE_FRAMES = 4096   # ~20 s of excitation before the table wraps
 _NOISE_TABLE_SEED = 0x5EED
@@ -69,11 +78,36 @@ def noise_key_from_bits(bits) -> tuple[int, int, int]:
     return b0 % T, (b1 % (T // 2)) * 2 + 1, (b2 % (T // 2)) * 2 + 1
 
 
+def _threefry2x32(key: tuple[int, int], x0: np.ndarray, x1: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """The Threefry-2x32 block cipher (20 rounds) on uint32 words."""
+    def rotl(v, d):
+        return (v << np.uint32(d)) | (v >> np.uint32(32 - d))
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    with np.errstate(over="ignore"):
+        x0, x1 = x0 + ks[0], x1 + ks[1]
+        for i in range(5):
+            for r in rotations[i % 2]:
+                x0 = x0 + x1
+                x1 = rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
 def noise_key_from_seed(seed: int) -> tuple[int, int, int]:
-    """A stream's noise permutation from an integer seed (numpy)."""
-    bits = np.random.default_rng(seed).integers(0, 2 ** 32, size=3,
-                                                dtype=np.uint64)
-    return noise_key_from_bits(bits)
+    """A stream's noise permutation from an integer seed: the three words
+    ``jax.random.bits(jax.random.key(seed), (3,), uint32)`` gives (the
+    default Threefry key and its partitionable bit stream, computed here
+    with NumPy), so a seed means the same noise in both packages.  The
+    key of a seed in [0, 2**32) is (0, seed)."""
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
+    b0, b1 = _threefry2x32((0, seed), np.zeros(3, np.uint32),
+                           np.arange(3, dtype=np.uint32))
+    return noise_key_from_bits(b0 ^ b1)
 
 
 def frame_noise(noise_key: tuple[int, int, int], start_frame: int,
@@ -96,20 +130,29 @@ def frame_noise(noise_key: tuple[int, int, int], start_frame: int,
 
 def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
                    noise_key: tuple[int, int, int], cfg: Config,
-                   use_sr: bool = True) -> tuple[torch.Tensor, StreamCarry]:
-    """One chunk in, one chunk out (constant D-frame latency), dsp mode.
+                   use_sr: bool = True, vocoder_mode: str = "dsp"
+                   ) -> tuple[torch.Tensor, StreamCarry]:
+    """One chunk in, one chunk out (constant D-frame latency).
 
-    chunk: [chunk_samples] new input PCM on the carry's device.  Returns
-    converted PCM [chunk_samples] and the next carry."""
-    geo = StreamGeometry.from_config(cfg, use_sr)
+    chunk: [chunk_in_samples] new input PCM at ``cfg.dsp.in_rate`` on the
+    carry's device.  Returns converted PCM [chunk_out_samples] at
+    ``cfg.dsp.out_rate`` and the next carry.  ``vocoder_mode`` ("dsp",
+    "ddsp" or "wave") must be the one the carry was made for
+    (:func:`init_stream`)."""
+    mode = resolve_vocoder_mode(False, vocoder_mode)
+    geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
     dsp = cfg.dsp
     hop = dsp.hop
     Fc = geo.chunk_frames
     mctx = geo.model_ctx
 
+    # 0. resample the client chunk to the internal rate (a hop-aligned
+    # delay, so the rest of the step is oblivious)
+    chunk, rs_in = resample_chunk(carry.rs_in, chunk.to(carry.wave_buf),
+                                  input_plan(dsp, geo.chunk_samples))
+
     # 1. roll the wave buffer and append the new chunk
-    buf = torch.cat([carry.wave_buf[geo.chunk_samples:],
-                     chunk.to(carry.wave_buf)])
+    buf = torch.cat([carry.wave_buf[geo.chunk_samples:], chunk])
 
     # 2. analyse ONLY the newly final frames; raw F0 also for the E
     # trailing provisional frames, and the El raws before them come from
@@ -143,13 +186,18 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
 
     # 3. convert: stage 1 advances by the Fc newly final input frames via
     # its per-layer caches; its outputs (lagging c1 frames) extend the
-    # carried stage-1 output cache to the range SR + synthesis need
+    # carried stage-1 output cache to the range SR + synthesis need.  The
+    # neural vocoders read ctx_v more frames on each side (their conv
+    # halo): Lv rows from frame s.
+    ctx_v = {"ddsp": cfg.vocoder_nn.context_frames,
+             "wave": cfg.vocoder_wave.context_frames}.get(mode, 0)
     ctx_sr = cfg.super_resolution.context_frames if use_sr else 0
     c1 = cfg.acoustic.context_frames
     dtype = compute_dtype(cfg)
     Fn = geo.analysis_frames
     L = Fc + 1
-    s = mctx                                  # first frame synthesis reads
+    Lv = L + 2 * ctx_v
+    s = mctx - ctx_v                          # first frame synthesis reads
     res, stage1_acts = convert_mc_streamed(
         params["stage1"], mc_all[Fn - E - Fc: Fn - E],
         f0_all[Fn - E - Fc: Fn - E], carry.stage1_acts, cfg.acoustic, dtype)
@@ -163,13 +211,32 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
                                   cfg.super_resolution, dsp, dtype)
     else:
         env_mid = env_low
+    # frame s sits at needed-array index ctx_sr (= s - (c1 + 1))
+    f0v, envv = f0c_need[ctx_sr: ctx_sr + Lv], env_mid[ctx_sr: ctx_sr + Lv]
+    apv, mcv = ap_all[s: s + Lv], mc_c_need[ctx_sr: ctx_sr + Lv]
 
     # 4. synthesize Fc frames with position-deterministic noise
     noise = frame_noise(noise_key, carry.frame_pos, Fc, noise_bins(cfg),
                         like=buf)
-    out, synth_carry = synthesize(f0c_need[ctx_sr: ctx_sr + L],
-                                  env_mid[ctx_sr: ctx_sr + L],
-                                  ap_all[s: s + L], noise, dsp, carry.synth)
+    if mode == "ddsp":
+        amps, nmag, f0f, voiced = neural_vocoder_controls(
+            params["vocoder"], f0v, envv, apv, mcv, cfg.vocoder_nn, dsp,
+            dtype)
+        out, synth_carry = render(
+            amps[ctx_v: ctx_v + L], nmag[ctx_v: ctx_v + L - 1],
+            f0f[ctx_v: ctx_v + L], voiced[ctx_v: ctx_v + L], noise, dsp,
+            carry.synth)
+    elif mode == "wave":
+        out, synth_carry = waveform_vocode(
+            params["vocoder_wave"], f0v, envv, apv, mcv, noise,
+            cfg.vocoder_wave, dsp, carry.synth, out_ctx=ctx_v, dtype=dtype)
+    else:
+        out, synth_carry = synthesize(f0v, envv, apv, noise, dsp,
+                                      carry.synth)
+
+    # 5. resample the converted chunk to the client output rate
+    out, rs_out = resample_chunk(carry.rs_out, out,
+                                 output_plan(dsp, geo.chunk_samples))
 
     new_carry = StreamCarry(
         wave_buf=buf, synth=synth_carry, frame_pos=carry.frame_pos + Fc,
@@ -177,21 +244,19 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
         f0_cache=f0_all[Fc:], mc_cache=mc_all[Fc:], ap_cache=ap_all[Fc:],
         f0_raw_prev=raw_ext[Fc: Fc + El],
         f0_cand_prev=cand_ext[Fc: Fc + El],
-        f0_cost_prev=cost_ext[Fc: Fc + El])
+        f0_cost_prev=cost_ext[Fc: Fc + El],
+        rs_in=rs_in, rs_out=rs_out)
     return out, new_carry
 
 
-def init_stream(params: dict, cfg: Config, use_sr: bool = True, device=None
+def init_stream(params: dict, cfg: Config, use_sr: bool = True,
+                use_neural_vocoder: bool = False,
+                vocoder_mode: str | None = None, device=None
                 ) -> tuple[StreamCarry, StreamGeometry]:
-    """Initial carry (on ``device``, ``cuda`` by default) and geometry of
-    the dsp vocoder mode (``cfg.resolved_vocoder_mode`` must be "dsp": the
-    ddsp and wave vocoders are not wired into streaming yet, ROADMAP.md
-    queue item 9)."""
-    if cfg.resolved_vocoder_mode != "dsp":
-        raise NotImplementedError(
-            f"vocoder mode {cfg.resolved_vocoder_mode!r} is not wired into "
-            f"streaming yet (ROADMAP.md queue item 9); the port streams "
-            f"'dsp'")
+    """Initial carry (on ``device``, ``cuda`` by default) and geometry for
+    the vocoder mode ``resolve_vocoder_mode(use_neural_vocoder,
+    vocoder_mode)`` ("dsp", "ddsp" or "wave")."""
+    mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
     device = resolve_device(device)
-    geo = StreamGeometry.from_config(cfg, use_sr)
-    return StreamCarry.init(cfg, geo, params, device), geo
+    geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
+    return StreamCarry.init(cfg, geo, params, device, vocoder_mode=mode), geo

@@ -11,9 +11,11 @@ arithmetic derived from the Config:
   Fn     analysis frames per step:    Fc + 2*mctx + 1
   L_buf  wave buffer samples:         (Fc + 2*mctx + ah)*hop + AH
 
+(mctx also holds the neural vocoder's halo in the ddsp and wave modes.)
 Step k consumes input chunk k and emits output frames [k*Fc - D,
-(k+1)*Fc - D).  Only identity client rates are supported in this port:
-client-rate resampling is ROADMAP.md queue item 7.
+(k+1)*Fc - D).  Client rates other than the internal one go through the
+polyphase resamplers of :func:`input_plan` / :func:`output_plan` at both
+edges of the step.
 """
 
 from __future__ import annotations
@@ -22,18 +24,35 @@ import dataclasses
 
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config, DspConfig
+from realtime_yukarin_tpu_torch.config import (Config, DspConfig,
+                                               resolve_vocoder_mode)
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
+from realtime_yukarin_tpu_torch.dsp import resample
 from realtime_yukarin_tpu_torch.dsp.f0 import _BIG as _VITERBI_BIG
-from realtime_yukarin_tpu_torch.dsp.synthesis import SynthCarry
+from realtime_yukarin_tpu_torch.dsp.synthesis import SynthCarry, WaveCarry
 
 
-def _require_identity_rates(dsp: DspConfig) -> None:
-    if dsp.in_rate != dsp.sample_rate or dsp.out_rate != dsp.sample_rate:
-        raise NotImplementedError(
-            f"client rates {dsp.in_rate}/{dsp.out_rate} Hz differ from the "
-            f"internal {dsp.sample_rate} Hz: client-rate resampling is not "
-            f"ported yet (ROADMAP.md queue item 7)")
+def input_plan(dsp: DspConfig, chunk_samples: int) -> resample.ResamplePlan:
+    """Client-rate -> internal-rate plan for one streaming chunk.  The
+    delay is hop-aligned so the resampled stream sits on the analysis
+    frame grid (streamed == offline stays exact)."""
+    if dsp.in_rate == dsp.sample_rate:
+        return resample.make_plan(dsp.sample_rate, dsp.sample_rate,
+                                  chunk_samples)
+    ci = chunk_samples * dsp.in_rate
+    if ci % dsp.sample_rate:
+        raise ValueError(
+            f"chunk of {chunk_samples} samples @{dsp.sample_rate} is not a "
+            f"whole number of samples @{dsp.in_rate}; pick chunk_ms "
+            f"divisible by both rates")
+    return resample.make_plan(dsp.in_rate, dsp.sample_rate,
+                              ci // dsp.sample_rate,
+                              align_delay_to=dsp.hop)
+
+
+def output_plan(dsp: DspConfig, chunk_samples: int) -> resample.ResamplePlan:
+    """Internal-rate -> client-rate plan for one streaming chunk."""
+    return resample.make_plan(dsp.sample_rate, dsp.out_rate, chunk_samples)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,43 +67,57 @@ class StreamGeometry:
     analysis_frames: int
     buf_samples: int
     buf_frame0_offset: int   # sample offset of analysis frame 0's center
-    in_delay: int            # input-resampler delay (0: identity rates)
-    out_delay: int           # output-resampler delay (0: identity rates)
+    in_delay: int            # input-resampler delay (internal samples)
+    out_delay: int           # output-resampler delay (output-rate samples)
     stage1_ctx: int          # stage-1 one-sided receptive field (frames)
     f0_edge: int             # trailing provisional-F0 frames (median+snap)
     f0_left: int             # leading raw/candidate cache frames
 
     @classmethod
-    def from_config(cls, cfg: Config, use_sr: bool = True
-                    ) -> "StreamGeometry":
-        """Geometry of the dsp vocoder mode (the ddsp and wave modes, which
-        widen the model halo, are not ported yet)."""
+    def from_config(cls, cfg: Config, use_sr: bool = True,
+                    use_neural_vocoder: bool = False,
+                    vocoder_mode: str | None = None) -> "StreamGeometry":
+        """Geometry of one streaming configuration; the vocoder mode comes
+        from the arguments (``resolve_vocoder_mode``), as in the JAX
+        package, not from ``cfg.vocoder_mode``."""
+        mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
         dsp = cfg.dsp
-        _require_identity_rates(dsp)
         hop = dsp.hop
         Fc = cfg.streaming.chunk_frames(dsp)
         E = dsp.f0_edge_frames
         mctx = cfg.acoustic.context_frames + E
         if use_sr:
             mctx += cfg.super_resolution.context_frames
+        if mode == "ddsp":
+            mctx += cfg.vocoder_nn.context_frames
+        elif mode == "wave":
+            mctx += cfg.vocoder_wave.context_frames
         AH = max(dsp.fft_size // 2, (dsp.f0_frame_len + 1) // 2,
                  (dsp.voicing_energy_win + 1) // 2)
         ah_frames = -(-AH // hop)
         D = mctx + ah_frames
+        p_in = input_plan(dsp, Fc * hop)
+        p_out = output_plan(dsp, Fc * hop)
         return cls(chunk_frames=Fc, chunk_samples=Fc * hop,
-                   chunk_in_samples=Fc * hop, chunk_out_samples=Fc * hop,
+                   chunk_in_samples=p_in.chunk_in,
+                   chunk_out_samples=p_out.chunk_out,
                    model_ctx=mctx, analysis_half=AH, delay_frames=D,
                    analysis_frames=Fc + 2 * mctx + 1,
                    buf_samples=(Fc + 2 * mctx + ah_frames) * hop + AH,
-                   buf_frame0_offset=AH, in_delay=0, out_delay=0,
+                   buf_frame0_offset=AH, in_delay=p_in.delay_out,
+                   out_delay=p_out.delay_out,
                    stage1_ctx=cfg.acoustic.context_frames,
                    f0_edge=E, f0_left=dsp.f0_left_frames)
 
+    def latency_samples(self, hop: int) -> int:
+        """Algorithmic latency in internal-rate samples (pipeline + the
+        frame-aligned input-resampler delay)."""
+        return self.delay_frames * hop + self.in_delay
+
     def latency_out_samples(self, dsp: DspConfig) -> int:
         """End-to-end latency in output-rate samples."""
-        internal = self.delay_frames * dsp.hop + self.in_delay
-        return (internal * dsp.out_rate // dsp.sample_rate
-                + self.out_delay)
+        return (self.latency_samples(dsp.hop) * dsp.out_rate
+                // dsp.sample_rate + self.out_delay)
 
     @property
     def cache_frames(self) -> int:
@@ -111,7 +144,8 @@ class StreamCarry:
     when its window was complete never changes."""
 
     wave_buf: torch.Tensor      # [buf_samples] rolling input window
-    synth: SynthCarry           # synthesizer state
+    synth: SynthCarry | WaveCarry  # synthesizer state (WaveCarry in wave
+    #                                mode)
     frame_pos: int              # global index of the next output frame
     f0_cache: torch.Tensor      # [C] final (snapped+refined) F0 per frame
     mc_cache: torch.Tensor      # [C, M+1] mel-cepstra of cached frames
@@ -121,10 +155,13 @@ class StreamCarry:
     f0_cost_prev: torch.Tensor  # [El, K] their Viterbi emission costs
     mc_c_cache: torch.Tensor    # [Cs, M+1] stage-1 outputs carried over
     stage1_acts: tuple          # per-block [k-1, hidden] activation tails
+    rs_in: torch.Tensor | None = None   # input-resampler history (client
+    #                                     rate; None at identity rates)
+    rs_out: torch.Tensor | None = None  # output-resampler history (internal)
 
     @classmethod
-    def init(cls, cfg: Config, geo: StreamGeometry, params: dict, device
-             ) -> "StreamCarry":
+    def init(cls, cfg: Config, geo: StreamGeometry, params: dict, device,
+             vocoder_mode: str = "dsp") -> "StreamCarry":
         """The state after an infinite history of silence: the caches are
         the analysis (and stage-1 conversion) of the initial zero
         buffer."""
@@ -142,9 +179,13 @@ class StreamCarry:
             compute_dtype(cfg))
         mc_c_row = sil.mc[0] + res_row
         K = cfg.dsp.f0_cand_k
+        synth = (WaveCarry.zeros(cfg.dsp, device, dt,
+                                 cfg.vocoder_wave.phase_fractional)
+                 if vocoder_mode == "wave"
+                 else SynthCarry.zeros(cfg.dsp, device, dt))
         return cls(
             wave_buf=zeros,
-            synth=SynthCarry.zeros(cfg.dsp, device, dt),
+            synth=synth,
             frame_pos=-geo.delay_frames,
             f0_cache=sil.f0, mc_cache=sil.mc, ap_cache=sil.ap,
             f0_raw_prev=torch.zeros((geo.f0_left,), dtype=dt, device=device),
@@ -155,7 +196,11 @@ class StreamCarry:
             f0_cost_prev=torch.full((geo.f0_left, K), _VITERBI_BIG,
                                     dtype=dt, device=device),
             mc_c_cache=mc_c_row[None].repeat(geo.stage1_cache_frames, 1),
-            stage1_acts=acts)
+            stage1_acts=acts,
+            rs_in=resample.init_carry(
+                input_plan(cfg.dsp, geo.chunk_samples), device),
+            rs_out=resample.init_carry(
+                output_plan(cfg.dsp, geo.chunk_samples), device))
 
 
 def noise_bins(cfg: Config) -> int:

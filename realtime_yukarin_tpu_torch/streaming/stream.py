@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config
+from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
 from realtime_yukarin_tpu_torch.models.voice_changer import params_to
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     init_stream, noise_key_from_seed, resolve_device, streaming_step)
@@ -19,23 +19,28 @@ class VoiceChangerStream:
     """Push PCM in with ``add``; pull converted PCM with ``process``.
 
     Runs on ``device`` (``cuda`` unless the caller passes another, e.g.
-    ``"cpu"``; no fallback).  Output is delayed by ``latency_samples``
-    relative to input; call ``flush()`` at the end of input to drain the
-    tail.  The noise permutation comes from ``seed`` unless an explicit
-    ``noise_key`` (offset, stride, shift) is given.
+    ``"cpu"``; no fallback).  Input is PCM at ``cfg.dsp.in_rate``, output
+    at ``cfg.dsp.out_rate``, delayed by ``latency_samples``; call
+    ``flush()`` at the end of input to drain the tail.  The synthesis
+    stage is ``resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)``.
+    The noise permutation comes from ``seed`` (the same noise as the JAX
+    package's ``jax.random.key(seed)``) unless an explicit ``noise_key``
+    (offset, stride, shift) is given.
     """
 
     def __init__(self, params: dict, cfg: Config, use_sr: bool = True,
-                 seed: int = 0,
+                 use_neural_vocoder: bool = False, seed: int = 0,
                  noise_key: tuple[int, int, int] | None = None,
-                 device=None):
+                 vocoder_mode: str | None = None, device=None):
         self.device = resolve_device(device)
         self._params = params_to(params, self.device)
         self._cfg = cfg
         self._use_sr = use_sr
+        self._mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
         self._noise_key = (noise_key if noise_key is not None
                            else noise_key_from_seed(seed))
         self._carry, self._geo = init_stream(self._params, cfg, use_sr,
+                                             vocoder_mode=self._mode,
                                              device=self.device)
         self._in = SegmentBuffer()
         self._in_pos = 0          # next input sample to consume
@@ -43,17 +48,17 @@ class VoiceChangerStream:
 
     @property
     def chunk_samples(self) -> int:
-        """Input chunk size (samples)."""
+        """Input chunk size (samples at cfg.dsp.in_rate)."""
         return self._geo.chunk_in_samples
 
     @property
     def chunk_out_samples(self) -> int:
-        """Output chunk size (samples)."""
+        """Output chunk size (samples at cfg.dsp.out_rate)."""
         return self._geo.chunk_out_samples
 
     @property
     def latency_samples(self) -> int:
-        """End-to-end delay in output samples."""
+        """End-to-end delay in output-rate samples."""
         return self._geo.latency_out_samples(self._cfg.dsp)
 
     def final_f0(self) -> np.ndarray:
@@ -62,13 +67,13 @@ class VoiceChangerStream:
         return self._carry.f0_cache[-self._geo.chunk_frames:].cpu().numpy()
 
     def add(self, samples: np.ndarray) -> None:
-        """Append input PCM (any length)."""
+        """Append input PCM at in_rate (any length)."""
         self._in.add(self._written, np.asarray(samples, np.float32))
         self._written += len(samples)
 
     def process(self) -> np.ndarray:
         """Consume every complete chunk available; return the converted
-        PCM (possibly empty)."""
+        PCM at out_rate (possibly empty)."""
         S = self._geo.chunk_in_samples
         out = []
         while self._in_pos + S <= self._written:
@@ -79,7 +84,8 @@ class VoiceChangerStream:
                 y, self._carry = streaming_step(
                     self._params, self._carry,
                     torch.from_numpy(chunk).to(self.device),
-                    self._noise_key, self._cfg, self._use_sr)
+                    self._noise_key, self._cfg, self._use_sr,
+                    vocoder_mode=self._mode)
             out.append(y.cpu().numpy())
         if not out:
             return np.zeros(0, np.float32)

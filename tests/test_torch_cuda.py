@@ -192,3 +192,47 @@ def test_training_step_through_the_kernels_matches_cpu(device):
     # render (forward only: no parameter reaches its bank's amplitudes)
     assert cuda.HARMONIC_BANK.launches == 3
     assert cuda.HARMONIC_BANK_BWD.launches == 1
+
+
+@pytest.mark.parametrize("R", [600, 601])
+def test_analysis_kernels_at_the_offline_width(device, R):
+    """An offline analysis of 3 s sends all R = 600 frames to each
+    analysis kernel in one launch (ten 64-row tiles), and one more frame
+    leaves a ragged tile: one launch per call, every one of several calls
+    within tolerance of the plain version."""
+    cases = chip_smoke.kernel_cases(R, Config(), device,
+                                    np.random.default_rng(R))
+    for name in chip_smoke.ANALYSIS_KERNELS:
+        kernel = getattr(cuda, name.upper())
+        plain = cases[name].plain()
+        for _ in range(3):
+            before = kernel.launches
+            _, err = chip_smoke.abs_rel_err(cases[name].kernel(), plain)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            assert err <= chip_smoke.TOL[name], (name, err)
+
+
+@pytest.mark.parametrize("mode", chip_smoke.VOCODER_MODES)
+def test_offline_convert_through_the_kernels_matches_cpu(device, mode):
+    """offline_convert on the card at the default Config in float32: one
+    launch of each forward kernel (the whole utterance at once), the
+    output within 2e-3 of the CPU's (the plain versions)."""
+    import dataclasses
+
+    from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+    from realtime_yukarin_tpu_torch.pipeline import offline_convert
+    cfg = dataclasses.replace(Config(), compute_dtype="float32")
+    params = chip_smoke.vocoder_params(cfg)
+    x = chip_smoke.test_signal(1.0, cfg.dsp.sample_rate, chip_smoke.SEED)
+    F = len(x) // cfg.dsp.hop
+    out = {}
+    for dev in ("cpu", device):
+        cuda.reset_counts()
+        out[dev] = offline_convert(params_to(params, dev), x, (0, 1, 1), cfg,
+                                   F, vocoder_mode=mode, device=dev).cpu()
+    torch.cuda.synchronize()
+    assert all(getattr(cuda, k.upper()).launches == 1
+               for k in chip_smoke.FORWARD_KERNELS)
+    _, err = chip_smoke.abs_rel_err(out[device], out["cpu"])
+    assert err <= 2e-3, err

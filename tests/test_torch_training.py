@@ -32,10 +32,9 @@ from realtime_yukarin_tpu_torch.training import losses as t_losses
 from realtime_yukarin_tpu_torch.training import train_step as t_ts
 from realtime_yukarin_tpu_torch.training.data import make_batch
 
-from torch_parity import (perturbed_params, rel_to_peak, t32,
+from torch_parity import (ALL_NETS, perturbed_params, rel_to_peak, t32,
                           training_configs)
 
-ALL = ("stage1/", "stage2/", "vocoder/", "vocoder_wave/")
 TINY_YAML = """\
 acoustic: {hidden: 32, num_blocks: 2}
 super_resolution: {hidden: 64, num_blocks: 2}
@@ -56,7 +55,7 @@ def _zero_counts():
 @pytest.fixture(scope="module")
 def setup():
     jc, tc = training_configs()
-    jp, tp, flat = perturbed_params(jc, tc, prefixes=ALL)
+    jp, tp, flat = perturbed_params(jc, tc, prefixes=ALL_NETS)
     return jc, tc, jp, tp, flat
 
 

@@ -22,6 +22,10 @@ from realtime_yukarin_tpu_torch.models.voice_changer import params_from_jax
 
 from conftest import tiny_config
 
+# every network subtree: perturbing all of them activates the zero-init
+# heads of both stages and both neural vocoders
+ALL_NETS = ("stage1/", "stage2/", "vocoder/", "vocoder_wave/")
+
 
 def configs(cfg=None):
     """(JAX Config, port Config) with float32 models; the tiny model

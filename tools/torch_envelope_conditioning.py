@@ -12,11 +12,15 @@ prints the largest mc difference relative to the largest |mc|.  A large
 value means two float32 implementations (the CUDA kernels and the CPU plain
 versions, or the port and the JAX package) can differ by that much on the
 signal.  Signals: chip_smoke.py's (a harmonic stack to 0.9 of Nyquist over a
--34 dB floor) and a narrow one (11 harmonics over a -44 dB floor).
+-34 dB floor), a narrow one (11 harmonics over a -44 dB floor), and
+chip_smoke.py's as a 16 kHz client delivers it (through the port's resample
+plans to 16 kHz and back: the band above 8 kHz is empty), at the default
+-70 dB envelope floor and at -50 dB.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import pathlib
 import sys
 
@@ -71,10 +75,20 @@ def main() -> int:
     from realtime_yukarin_tpu_torch.config import DspConfig
     from realtime_yukarin_tpu_torch.dsp.world import analyze
 
+    from realtime_yukarin_tpu_torch.dsp import resample as rs
+
     cfg = DspConfig()
     fs = cfg.sample_rate
-    for label, x in (("chip_smoke signal", chip_smoke.test_signal(1.0, fs, 0)),
-                     ("narrow signal", narrow_signal(1.0, fs, 0))):
+    full = chip_smoke.test_signal(1.0, fs, 0)
+    down = rs.resample_signal(torch.from_numpy(full),
+                              rs.make_plan(fs, 16000, 2400))
+    band = rs.resample_signal(down, rs.make_plan(16000, fs, 1600)).numpy()
+    floor50 = dataclasses.replace(cfg, envelope_floor_db=-50.0)
+    for label, x, cfg in (
+            ("chip_smoke signal", full, cfg),
+            ("narrow signal", narrow_signal(1.0, fs, 0), cfg),
+            ("16 kHz client, -70 dB floor", band, cfg),
+            ("16 kHz client, -50 dB floor", band, floor50)):
         F = len(x) // cfg.hop
         f0 = analyze(torch.from_numpy(x), F, cfg).f0.numpy()
         m64 = mc_of(x, f0, cfg, torch.float64, False)

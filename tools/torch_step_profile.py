@@ -2,11 +2,20 @@
 """Where one step of the PyTorch port spends its time on the GPU.
 
     python3 tools/torch_step_profile.py [--steps 10]        # streaming step
+    python3 tools/torch_step_profile.py --vocoder wave --client_rate 48000
+    python3 tools/torch_step_profile.py --offline [--steps 3]  # offline
     python3 tools/torch_step_profile.py --train [--steps 3] # training steps
 
 Streaming: runs ``VoiceChangerStream(device="cuda")`` at the default Config
-(full width, bf16 models, the seeded weights and signal of chip_smoke.py),
-warms up, then traces ``--steps`` steps with ``torch.profiler``.
+(full width, bf16 models, the seeded weights and signal of chip_smoke.py,
+the vocoder heads perturbed as in its phases 8-10 unless the mode is dsp),
+in the ``--vocoder`` mode and at the ``--client_rate`` (in and out; default
+the internal 24 kHz), warms up, then traces ``--steps`` steps with
+``torch.profiler``.
+
+``--offline``: ``pipeline.offline_convert`` on chip_smoke.py's 3 s signal
+(600 frames) in each vocoder mode: one warm-up call, then ``--steps``
+calls traced.
 
 ``--train``: the default Config at full width in float32 with chip_smoke's
 batch (8 utterances x 100 frames); for the joint and the GAN objective in
@@ -89,16 +98,22 @@ def profile_window(label: str, fn, n: int) -> None:
               f"{len(times) / n:.1f} launches/step")
 
 
-def profile_stream(steps: int) -> None:
+def profile_stream(steps: int, mode: str, rate: int | None) -> None:
+    import dataclasses
+
     import chip_smoke
     from realtime_yukarin_tpu_torch.config import Config
     from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
 
     cfg = Config()
-    stream = VoiceChangerStream(chip_smoke.seeded_params(cfg), cfg,
-                                seed=chip_smoke.SEED, device="cuda")
+    cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
+        cfg.dsp, input_rate=rate, output_rate=rate))
+    params = (chip_smoke.seeded_params(cfg) if mode == "dsp"
+              else chip_smoke.vocoder_params(cfg))
+    stream = VoiceChangerStream(params, cfg, seed=chip_smoke.SEED,
+                                vocoder_mode=mode, device="cuda")
     S = stream.chunk_samples
-    x = chip_smoke.test_signal(3.0, cfg.dsp.sample_rate, chip_smoke.SEED)
+    x = chip_smoke.test_signal(3.0, cfg.dsp.in_rate, chip_smoke.SEED)
     chunks = iter([x[k * S: (k + 1) * S] for k in range(len(x) // S)])
 
     def one_step():
@@ -107,7 +122,28 @@ def profile_stream(steps: int) -> None:
 
     for _ in range(5):                           # warm-up
         one_step()
-    profile_window("stream", one_step, steps)
+    profile_window(f"stream {mode} @{cfg.dsp.in_rate} Hz", one_step, steps)
+
+
+def profile_offline(steps: int) -> None:
+    import chip_smoke
+    from realtime_yukarin_tpu_torch.config import Config
+    from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+    from realtime_yukarin_tpu_torch.pipeline import offline_convert
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        noise_key_from_seed)
+
+    cfg = Config()
+    params = params_to(chip_smoke.vocoder_params(cfg), "cuda")
+    x = chip_smoke.test_signal(3.0, cfg.dsp.sample_rate, chip_smoke.SEED)
+    F = len(x) // cfg.dsp.hop
+    key = noise_key_from_seed(chip_smoke.SEED)
+    for mode in chip_smoke.VOCODER_MODES:
+        def call():
+            offline_convert(params, x, key, cfg, F, vocoder_mode=mode,
+                            device="cuda")
+        call()                                   # warm-up
+        profile_window(f"offline {mode} ({F} frames)", call, steps)
 
 
 def profile_train(steps: int) -> None:
@@ -155,14 +191,22 @@ def main() -> int:
                     help="steps traced per window (10 streaming, 3 train)")
     ap.add_argument("--train", action="store_true",
                     help="profile the training steps instead of streaming")
+    ap.add_argument("--offline", action="store_true",
+                    help="profile offline_convert (3 s) in each mode")
+    ap.add_argument("--vocoder", choices=("dsp", "ddsp", "wave"),
+                    default="dsp", help="streaming vocoder mode")
+    ap.add_argument("--client_rate", type=int, default=None,
+                    help="streaming client rate in and out (Hz)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: CUDA is not available", file=sys.stderr)
         return 2
     if args.train:
         profile_train(args.steps or 3)
+    elif args.offline:
+        profile_offline(args.steps or 3)
     else:
-        profile_stream(args.steps or 10)
+        profile_stream(args.steps or 10, args.vocoder, args.client_rate)
     return 0
 
 
