@@ -60,8 +60,23 @@ non-zero):
    launches against the step count;
 11. the analysis kernels at the ragged R = 601 (an offline analysis one
    frame longer) against their plain versions;
-12. the kernels line: one JSON object with every kernel's numbers;
-13. last line: ``{"ok": true, "device": {...}}``.
+12. batched serving: ``BatchedServer`` at 64 streams in float32 for 24
+   steps on seeded lane signals (gains, f0 scales, silent lanes); lanes
+   0, 1, 31, 63 against single ``VoiceChangerStream``s with their lane
+   keys (2e-3 of the peak, identical voicing), lane 5 paused for steps
+   8-11 (carry bit for bit, zero output), lane 7 reset at step 12 against
+   a fresh stream; each forward kernel launched once per step at R = 1280;
+   one ``step_device`` under ``torch.cuda.set_sync_debug_mode("error")``;
+13. serving throughput (bf16) at 1, 8 and 64 streams: p50 / p99 step wall
+   time, aggregate x realtime, launches per step, and a profiler window's
+   device busy, idle share and the forward kernels' device time;
+14. ``SocketVoiceServer`` (8 slots) with 3 concurrent loopback clients,
+   and a 48 kHz in / out server with one, each against a single stream;
+15. ``PipelinedStream`` at depth 2 against the synchronous stream (bit for
+   bit), then a 600-chunk soak with its dispatch and chunk latency;
+16. a 48 kHz client's stream creation and first chunk, from cold caches;
+17. the kernels line: one JSON object with every kernel's numbers;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is not available or the port's
 package is missing.  Imports nothing of JAX.
@@ -70,7 +85,9 @@ package is missing.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -145,6 +162,24 @@ VOCODER_PERTURB = 1e-2
 STREAM_OFFLINE_TOL = {"dsp": 2e-3, "ddsp": 2e-3, "wave": 3e-3}
 CLIENT_RATE = 48000
 FORWARD_KERNELS = ("harmonic_bank", "power_spectrum", "envelope_cepstrum")
+# Phase 12: BatchedServer at 64 streams (R = 1280 rows per kernel launch)
+# for 24 steps in float32; these lanes held to single streams, one lane
+# paused for four steps, one reset; batched vs single stream within the
+# streamed == offline tolerance (cuBLAS / cuDNN pick other algorithms at
+# [N*F, ...] than at [F, ...], so it is a float32 tolerance, not equality)
+BATCH_STREAMS, BATCH_STEPS = 64, 24
+BATCH_HELD = (0, 1, 31, 63)
+PAUSED_LANE, PAUSE_STEPS = 5, (8, 11)
+RESET_LANE, RESET_STEP = 7, 12
+BATCH_TOL = 2e-3
+# Phase 13: serving throughput in bf16 at these stream counts
+SERVE_STREAMS = (1, 8, 64)
+SERVE_WARMUP, SERVE_STEPS, PROFILE_STEPS = 4, 32, 5
+LANE_STEPS = max(BATCH_STEPS, SERVE_WARMUP + SERVE_STEPS + PROFILE_STEPS)
+# Phase 14: the socket server's slots, clients and seconds per client
+SOCKET_STREAMS, SOCKET_CLIENTS, SOCKET_SECONDS = 8, 3, 2.0
+# Phase 15: the pipelined soak (one simulated minute)
+SOAK_CHUNKS = 600
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -377,17 +412,19 @@ def bank_ragged(R: int, H: int, hop: int, dev, rng) -> tuple[float, float]:
     return e_fwd, e_bwd
 
 
-def test_signal(seconds: float, fs: int, seed: int) -> np.ndarray:
+def test_signal(seconds: float, fs: int, seed: int,
+                f0_scale: float = 1.0) -> np.ndarray:
     """Seeded voiced / unvoiced alternation over a noise floor: a vibrato
     harmonic stack to 0.9 of Nyquist at -6 dB per octave with AM, bursts
     of louder noise, and the floor alone (-34 dB).  A stack of only a few
     harmonics over a quieter floor leaves most bins of the voiced frames
     near the envelope's -70 dB floor, where float32 rounding moves the
     log envelope (see PERF.md): two float32 orders of summation then
-    differ by more than the parity tolerance."""
+    differ by more than the parity tolerance.  ``f0_scale`` scales the
+    contour."""
     rng = np.random.default_rng(seed)
     t = np.arange(int(seconds * fs)) / fs
-    f0 = 140 + 40 * np.sin(2 * np.pi * 1.3 * t)
+    f0 = f0_scale * (140 + 40 * np.sin(2 * np.pi * 1.3 * t))
     ph = 2 * np.pi * np.cumsum(f0) / fs
     k_max = np.floor(0.9 * fs / 2 / f0)
     voiced = sum(np.where(k <= k_max, np.sin(k * ph) / k, 0.0)
@@ -776,6 +813,462 @@ def streams_phase(cfg, params, dev) -> dict:
     return launches
 
 
+# -- batched serving and the host edges (phases 12-16) -----------------------
+
+@functools.lru_cache(maxsize=1)
+def lane_signals(n: int, steps: int, fs: int, S: int) -> np.ndarray:
+    """[n, steps * S] seeded lane inputs: test_signal per lane with its own
+    seed, f0 scale (0.8-1.2) and gain (0.3-1.7); lanes i % 9 == 3 are
+    silent."""
+    x = np.zeros((n, steps * S), np.float32)
+    for i in range(n):
+        if i % 9 == 3:
+            continue
+        sig = test_signal(steps * S / fs + 0.01, fs, SEED + i,
+                          f0_scale=0.8 + 0.4 * (i % 8) / 7)
+        x[i] = sig[: steps * S] * (0.3 + 1.4 * ((i * 37) % 64) / 63)
+    return x
+
+
+def record_rows() -> tuple[dict, Callable[[], None]]:
+    """Wrap each forward kernel's launch to record the row count it was
+    given (the launch still counts once); returns ({name: [R, ...]}, undo).
+    R is the fourth argument of the power spectrum's launcher, the fifth
+    of the envelope cepstrum's and the sixth of the bank's."""
+    from realtime_yukarin_tpu_torch.ops import cuda
+    where = {"power_spectrum": 3, "envelope_cepstrum": 4,
+             "harmonic_bank": 5}
+    rows = {k: [] for k in where}
+    kernels = {k.name: k for k in cuda.KERNELS if k.name in where}
+    for name, k in kernels.items():
+        def launch(*args, _k=k, _name=name):
+            rows[_name].append(int(args[where[_name]]))
+            type(_k).launch(_k, *args)
+        k.launch = launch
+
+    def undo():
+        for k in kernels.values():
+            del k.launch
+    return rows, undo
+
+
+def single_run(params, cfg, key, chunks: np.ndarray):
+    """A VoiceChangerStream with noise ``key`` over [steps, S] chunks:
+    (output [steps * So], voicing [steps, Fc])."""
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+    stream = VoiceChangerStream(params, cfg, noise_key=key, device="cuda")
+    outs, voicing = [], []
+    for c in chunks:
+        stream.add(c)
+        outs.append(stream.process())
+        voicing.append(stream.final_f0() > 0)
+    return np.concatenate(outs), np.stack(voicing)
+
+
+def rel_peak(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-9))
+
+
+def batched_phase(cfg) -> dict:
+    """Phase 12: BATCH_STREAMS lanes in float32 through one BatchedServer
+    for BATCH_STEPS steps; lanes held to single streams, a paused lane's
+    carry bit for bit, a reset lane against a fresh stream, one launch of
+    each forward kernel per step at R = 20 * BATCH_STREAMS, and a step
+    with no host synchronisation.  Returns the run's launches."""
+    import torch
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        lane_noise_keys)
+    from realtime_yukarin_tpu_torch.streaming.state import tree_leaves
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = seeded_params(cfg32)
+    N, steps = BATCH_STREAMS, BATCH_STEPS
+    server = BatchedServer(params, cfg32, num_streams=N, seed=SEED,
+                           device="cuda")
+    S, Fc = server.chunk_samples, cfg.streaming.chunk_frames(cfg.dsp)
+    x = lane_signals(N, LANE_STEPS, cfg.dsp.in_rate, S)[:, : steps * S]
+    chunks = x.reshape(N, steps, S).transpose(1, 0, 2)       # [steps, N, S]
+    keys = lane_noise_keys(SEED, N)
+    held = [i for i in BATCH_HELD if i not in (PAUSED_LANE, RESET_LANE)]
+    outs, voicing = [], []
+    cuda.reset_counts()
+    rows, undo = record_rows()
+    try:
+        for k in range(steps):
+            live = np.ones(N, bool)
+            live[PAUSED_LANE] = not PAUSE_STEPS[0] <= k <= PAUSE_STEPS[1]
+            reset = np.zeros(N, bool)
+            reset[RESET_LANE] = k == RESET_STEP
+            if k == PAUSE_STEPS[0]:
+                before = [t.clone() for t in
+                          tree_leaves(server.lane_carry(PAUSED_LANE))]
+            outs.append(server.step(chunks[k], live=live, reset=reset))
+            if k == PAUSE_STEPS[1]:
+                after = tree_leaves(server.lane_carry(PAUSED_LANE))
+                same = all(torch.equal(a, b) for a, b in zip(before, after))
+            voicing.append([(server.lane_carry(i).f0_cache[-Fc:] > 0)
+                            .cpu().numpy() for i in held])
+    finally:
+        undo()
+    launches = launch_counts()
+    out = np.stack(outs)                                     # [steps, N, So]
+    paused = out[PAUSE_STEPS[0]: PAUSE_STEPS[1] + 1, PAUSED_LANE]
+    R = 20 * N
+    print(f"[batched] {N} streams x {steps} steps (float32): launches "
+          f"{launches}; rows per launch "
+          f"{ {k: sorted(set(v)) for k, v in rows.items()} }")
+    print(f"[batched] lane {PAUSED_LANE} paused for steps {PAUSE_STEPS}: "
+          f"carry bit-equal={same} ({len(before)} leaves), output max "
+          f"{float(np.abs(paused).max()):.3e}")
+    fails = []
+    for name in FORWARD_KERNELS:
+        if launches[name] != steps or set(rows[name]) != {R}:
+            fails.append(f"{name}: {launches[name]} launches, rows "
+                         f"{sorted(set(rows[name]))}")
+    if not same or np.abs(paused).max() != 0.0:
+        fails.append(f"paused lane {PAUSED_LANE}")
+    for j, lane in enumerate(held):
+        y, v = single_run(params, cfg32, keys[lane], chunks[:, lane])
+        vb = np.stack([s[j] for s in voicing])
+        err = rel_peak(out[:, lane].reshape(-1), y)
+        same_v = bool((vb == v).all())
+        print(f"[batched] lane {lane} vs a single stream: max_err/peak="
+              f"{err:.3e} (tol {BATCH_TOL:g}), voicing identical={same_v} "
+              f"({int(v.sum())} voiced of {v.size} frames)")
+        if err > BATCH_TOL or not same_v:
+            fails.append(f"lane {lane}")
+    y, _ = single_run(params, cfg32, keys[RESET_LANE],
+                      chunks[RESET_STEP:, RESET_LANE])
+    err = rel_peak(out[RESET_STEP:, RESET_LANE].reshape(-1), y)
+    print(f"[batched] lane {RESET_LANE} reset at step {RESET_STEP} vs a "
+          f"fresh stream from there: max_err/peak={err:.3e}")
+    if err > BATCH_TOL:
+        fails.append(f"reset lane {RESET_LANE}")
+    # one step of device tensors with sync debugging set to raise
+    xs = torch.from_numpy(chunks[0]).cuda()
+    server.step_device(xs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        server.step_device(xs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("[batched] step_device under set_sync_debug_mode('error'): no "
+          "host synchronisation")
+    if fails:
+        raise AssertionError(f"batched serving: {fails}")
+    return launches
+
+
+# a record_function span's name ("Optimizer.step#AdamW.step"); kernel names
+# carry templates, scopes and parentheses
+ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
+
+
+def profile_stats(fn, n: int) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``fn`` (ending in a sync):
+    host ms per call, device busy ms per call (every GPU kernel and copy
+    summed; one stream, so they do not overlap), idle share, GPU launches
+    per call, each port kernel's (device us per launch, launches per call)
+    and {GPU event name: [device us, ...]}.  The GPU-side spans of user
+    annotations overlap the kernels they contain and are left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from realtime_yukarin_tpu_torch.ops import cuda
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not ANNOTATION.match(e.name)]
+    by_name: dict[str, list] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.device_time)
+    busy = sum(e.device_time for e in events) / 1e3
+    port = {}
+    for k in cuda.KERNELS:
+        # csrc/<name>.cu's kernel is <name>_kernel, demangled as
+        # "<name>_kernel<" or "<name>_kernel("
+        t = [us for name, ts in by_name.items()
+             if any(f"{k.name}_kernel{c}" in name for c in "<(")
+             for us in ts]
+        port[k.name] = (float(np.mean(t)) if t else None, len(t) / n)
+    return dict(wall_ms=wall * 1e3 / n, busy_ms=busy / n,
+                idle=(1.0 - busy / (wall * 1e3)) if events else None,
+                gpu_launches=len(events) / n, port=port, by_name=by_name)
+
+
+def throughput_phase(cfg) -> dict:
+    """Phase 13: bf16 BatchedServer at each of SERVE_STREAMS: p50 / p99
+    step wall time (host clock; host chunks in, host output back, so each
+    step ends in a device sync), aggregate x realtime, the forward kernels'
+    launches per step, and a profiler window's device busy, idle share,
+    GPU launches and port-kernel device time.  Returns {N: record}."""
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+
+    params = seeded_params(cfg)
+    chunk_s = cfg.streaming.chunk_samples(cfg.dsp) / cfg.dsp.sample_rate
+    out = {}
+    for N in SERVE_STREAMS:
+        server = BatchedServer(params, cfg, num_streams=N, seed=SEED,
+                               device="cuda")
+        S = server.chunk_samples
+        chunks = lane_signals(BATCH_STREAMS, LANE_STEPS, cfg.dsp.in_rate,
+                              S)[:N].reshape(N, LANE_STEPS, S).transpose(
+                                  1, 0, 2).copy()
+        feed = iter(chunks)
+        for _ in range(SERVE_WARMUP):
+            server.step(next(feed))
+        cuda.reset_counts()
+        walls = []
+        for _ in range(SERVE_STEPS):
+            t0 = time.perf_counter()
+            y = server.step(next(feed))
+            walls.append(time.perf_counter() - t0)
+        if not np.isfinite(y).all():
+            raise AssertionError(f"serving N={N}: non-finite output")
+        per_step = {k: n / SERVE_STEPS for k, n in launch_counts().items()}
+        stats = profile_stats(lambda: server.step(next(feed)), PROFILE_STEPS)
+        p50, p99 = (float(np.percentile(walls, q)) for q in (50, 99))
+        stats.pop("by_name")
+        rec = dict(p50_ms=p50 * 1e3, p99_ms=p99 * 1e3,
+                   x_realtime=N * chunk_s / p50, launches=per_step, **stats)
+        out[N] = rec
+        port = ", ".join(
+            f"{k} {us:.2f} us x{c:g}" if us is not None
+            else f"{k} not measured" for k, (us, c) in stats["port"].items()
+            if k in FORWARD_KERNELS)
+        print(f"[serve] N={N}: step wall p50 {rec['p50_ms']:.3f} ms p99 "
+              f"{rec['p99_ms']:.3f} ms, aggregate x{rec['x_realtime']:.1f} "
+              f"realtime; port kernel launches/step "
+              f"{ {k: per_step[k] for k in FORWARD_KERNELS} }")
+        print(f"[serve] N={N} profile ({PROFILE_STEPS} steps): host "
+              f"{stats['wall_ms']:.3f} ms/step, device busy "
+              f"{stats['busy_ms']:.3f} ms/step, idle share "
+              + (f"{stats['idle']:.3f}" if stats["idle"] is not None
+                 else "not measured")
+              + f", {stats['gpu_launches']:.1f} GPU launches/step; device per "
+              f"launch: {port}")
+        if any(per_step[k] != 1 for k in FORWARD_KERNELS):
+            raise AssertionError(f"serving N={N}: forward kernels not "
+                                 f"launched once per step: {per_step}")
+        del server
+    return out
+
+
+class SocketClients:
+    """Connect to ``srv`` one client at a time, each after the last was
+    accepted (so client i holds slot i), then stream every signal at once;
+    ``run()`` returns each client's converted PCM."""
+
+    def __init__(self, srv, signals):
+        import socket
+        self._socks = []
+        for i in range(len(signals)):
+            s = socket.create_connection(srv.address)
+            deadline = time.time() + 60
+            while srv.metrics.counters.get("accepted_connections", 0) <= i:
+                if time.time() > deadline:
+                    raise AssertionError("the socket server accepts no "
+                                         "connection")
+                time.sleep(0.01)
+            self._socks.append(s)
+        self._data = [np.ascontiguousarray(x, "<f4").tobytes()
+                      for x in signals]
+
+    def run(self) -> list[np.ndarray]:
+        import socket
+        import threading
+        outs = [bytearray() for _ in self._socks]
+
+        def client(i):
+            s = self._socks[i]
+
+            def pump():
+                s.sendall(self._data[i])
+                s.shutdown(socket.SHUT_WR)
+            t = threading.Thread(target=pump, daemon=True)
+            t.start()
+            while True:
+                b = s.recv(65536)
+                if not b:
+                    break
+                outs[i].extend(b)
+            t.join()
+            s.close()
+        threads = [threading.Thread(target=client, args=(i,), daemon=True)
+                   for i in range(len(self._socks))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            if t.is_alive():
+                raise AssertionError("a socket client did not finish")
+        return [np.frombuffer(bytes(o), "<f4") for o in outs]
+
+
+def socket_phase(cfg) -> None:
+    """Phase 14: SocketVoiceServer on the card (float32): SOCKET_STREAMS
+    slots serving SOCKET_CLIENTS concurrent clients, then a CLIENT_RATE in
+    / out server with one client; each output against a single stream
+    with its slot's noise key."""
+    from realtime_yukarin_tpu_torch.runtime.socket_server import (
+        SocketVoiceServer)
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        lane_noise_keys)
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    rate_cfg = dataclasses.replace(cfg32, dsp=dataclasses.replace(
+        cfg.dsp, input_rate=CLIENT_RATE, output_rate=CLIENT_RATE))
+    params = seeded_params(cfg32)
+    fails = []
+    for label, c, n_clients in (("24 kHz", cfg32, SOCKET_CLIENTS),
+                                (f"{CLIENT_RATE // 1000} kHz", rate_cfg, 1)):
+        fs = c.dsp.in_rate
+        signals = [test_signal(SOCKET_SECONDS, fs, SEED + 11 + i)
+                   * (0.6 + 0.3 * i) for i in range(n_clients)]
+        t0 = time.perf_counter()
+        with SocketVoiceServer(params, c, num_streams=SOCKET_STREAMS,
+                               seed=SEED, device="cuda") as srv:
+            ready = time.perf_counter() - t0
+            ys = SocketClients(srv, signals).run()
+            counters = dict(srv.metrics.counters)
+            lat = srv.metrics.chunk_latency.summary()
+        keys = lane_noise_keys(SEED, SOCKET_STREAMS)
+        for i, (x, y) in enumerate(zip(signals, ys)):
+            stream = VoiceChangerStream(params, c, noise_key=keys[i],
+                                        device="cuda")
+            stream.add(x)
+            ref = np.concatenate([stream.process(), stream.flush()])
+            n = min(len(ref), len(y))
+            err = rel_peak(y[:n], ref[:n])
+            print(f"[socket] {label} client {i} (slot {i}): {len(y)} "
+                  f"samples back for {len(x)}, finite="
+                  f"{bool(np.isfinite(y).all())}, vs a single stream "
+                  f"max_err/peak={err:.3e} (tol {BATCH_TOL:g})")
+            if n < len(x) or err > BATCH_TOL or not np.isfinite(y).all():
+                fails.append(f"{label} client {i}")
+        print(f"[socket] {label}: server ready in {ready:.2f} s; ticker "
+              f"step p50 {lat.get('p50', float('nan')):.2f} ms p99 "
+              f"{lat.get('p99', float('nan')):.2f} ms; counters {counters}")
+        if counters.get("output_overruns", 0) or counters.get(
+                "ticker_errors", 0):
+            fails.append(f"{label} counters {counters}")
+    if fails:
+        raise AssertionError(f"socket serving: {fails}")
+
+
+def pipelined_phase(cfg) -> None:
+    """Phase 15: PipelinedStream (depth 2, bf16) on the card equals the
+    synchronous VoiceChangerStream bit for bit on SECONDS of signal; then
+    a SOAK_CHUNKS-chunk soak: finite, nothing dropped, output rms of the
+    first and the last 10 s within 25% of each other."""
+    from realtime_yukarin_tpu_torch.runtime.pipelined import PipelinedStream
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+
+    params = seeded_params(cfg)
+    x = test_signal(SECONDS, cfg.dsp.in_rate, SEED)
+    sync = VoiceChangerStream(params, cfg, seed=SEED, device="cuda")
+    sync.add(x)
+    ref = np.concatenate([sync.process(), sync.flush()])
+    with PipelinedStream(params, cfg, seed=SEED, depth=2,
+                         device="cuda") as pipe:
+        pipe.push_input(x)
+        pipe.flush()
+        got = pipe.pop_output(pipe.output_available())
+    n = min(len(ref), len(got))
+    same = n >= len(x) and bool(np.array_equal(got[:n], ref[:n]))
+    print(f"[pipelined] depth 2 vs synchronous on {len(x)} samples: "
+          f"bit-equal={same}")
+    if not same:
+        raise AssertionError("PipelinedStream differs from the synchronous "
+                             "stream")
+    fs = cfg.dsp.in_rate
+    with PipelinedStream(params, cfg, seed=SEED, depth=2, ring_seconds=2.0,
+                         device="cuda") as ps:
+        S, So = ps.chunk_samples, ps.chunk_out_samples
+        src = test_signal(10.0, fs, SEED + 5)
+        got, pushed = [], 0
+        t0 = time.perf_counter()
+        for k in range(SOAK_CHUNKS):
+            c = src[(k * S) % (len(src) - S):][:S]
+            while len(c):
+                m = ps.push_input(c)
+                pushed += m
+                c = c[m:]
+                if len(c):
+                    time.sleep(0.001)
+            if ps.output_available():
+                got.append(ps.pop_output(ps.output_available()))
+        deadline = time.time() + 120
+        while (sum(map(len, got)) < SOAK_CHUNKS * So
+               and time.time() < deadline):
+            if ps.output_available():
+                got.append(ps.pop_output(ps.output_available()))
+            else:
+                time.sleep(0.002)
+        wall = time.perf_counter() - t0
+        counters = dict(ps.metrics.counters)
+        m = ps.metrics.to_dict()
+    y = np.concatenate(got)
+    ten_s = 100 * So
+    rms = [float(np.sqrt(np.mean(seg ** 2)))
+           for seg in (y[:ten_s], y[SOAK_CHUNKS * So - ten_s:
+                                   SOAK_CHUNKS * So])]
+    d, c = m["dispatch_latency_ms"], m["chunk_latency_ms"]
+    print(f"[pipelined] soak {SOAK_CHUNKS} chunks in {wall:.1f} s: "
+          f"{len(y)} samples back, finite={bool(np.isfinite(y).all())}, "
+          f"rms first / last 10 s {rms[0]:.4f} / {rms[1]:.4f}; dispatch "
+          f"p50 {d['p50']:.3f} ms p99 {d['p99']:.3f} ms, chunk latency p50 "
+          f"{c['p50']:.3f} ms p99 {c['p99']:.3f} ms; counters {counters}")
+    if (pushed != SOAK_CHUNKS * S or len(y) < SOAK_CHUNKS * So
+            or not np.isfinite(y).all() or min(rms) < 1e-3
+            or abs(rms[1] - rms[0]) > 0.25 * max(rms)
+            or counters.get("output_underruns", 0)):
+        raise AssertionError("pipelined soak failed")
+
+
+def first_chunk_phase(cfg) -> None:
+    """Phase 16: a CLIENT_RATE in / out stream's creation and first chunk,
+    with every host constant and resample matrix built anew (as in a
+    fresh process)."""
+    import torch
+    from realtime_yukarin_tpu_torch.dsp import resample
+    from realtime_yukarin_tpu_torch.ops import dft
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+
+    rate_cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
+        cfg.dsp, input_rate=CLIENT_RATE, output_rate=CLIENT_RATE))
+    params = seeded_params(rate_cfg)
+    dft._const.cache_clear()
+    resample._matrix_np.cache_clear()
+    t0 = time.perf_counter()
+    stream = VoiceChangerStream(params, rate_cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    stream.add(test_signal(0.1, CLIENT_RATE, SEED))
+    y = stream.process()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"[first-chunk] {CLIENT_RATE // 1000} kHz client: stream created "
+          f"in {t1 - t0:.3f} s (both resample matrices built), first chunk "
+          f"{t2 - t1:.3f} s, together {t2 - t0:.3f} s; output "
+          f"{len(y)} samples")
+    if len(y) != stream.chunk_out_samples or not np.isfinite(y).all():
+        raise AssertionError("48 kHz first chunk wrong-sized or non-finite")
+
+
 def main() -> int:
     try:
         import torch
@@ -1014,11 +1507,36 @@ def main() -> int:
     print(f"[kernel] ragged offline width: phase seconds "
           f"{time.perf_counter() - t0:.1f}")
 
-    # 12. kernels line (launches: every path's run — the default stream,
-    # training, offline in each mode, the ddsp/wave/client-rate streams),
-    # 13. result line
+    # 12. batched serving at 64 streams, float32
+    t0 = time.perf_counter()
+    batched_launches = batched_phase(cfg)
+    print(f"[batched] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 13. serving throughput, bf16
+    t0 = time.perf_counter()
+    serving = throughput_phase(cfg)
+    print(f"[serve] phase seconds {time.perf_counter() - t0:.1f}")
+    for kname in FORWARD_KERNELS:
+        us, _ = serving[BATCH_STREAMS]["port"][kname]
+        record[kname].update(batched_rows=20 * BATCH_STREAMS,
+                             batched_device_ms=(None if us is None
+                                                else us / 1e3))
+
+    # 14. the socket server, 15. the pipelined stream and its soak, 16. a
+    # 48 kHz client's first chunk
+    t0 = time.perf_counter()
+    socket_phase(cfg)
+    print(f"[socket] phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    pipelined_phase(cfg)
+    print(f"[pipelined] phase seconds {time.perf_counter() - t0:.1f}")
+    first_chunk_phase(cfg)
+
+    # 17. kernels line (launches: every path's run — the default stream,
+    # training, offline in each mode, the ddsp/wave/client-rate streams,
+    # the batched server), 18. result line
     paths = [launches, train_launches, *offline_launches.values(),
-             *stream_launches.values()]
+             *stream_launches.values(), batched_launches]
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name],

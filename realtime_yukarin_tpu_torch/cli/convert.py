@@ -13,8 +13,8 @@ Reads the input at ``cfg.dsp.in_rate``, converts it through
 rate with the streaming step's plans) and writes it at
 ``cfg.dsp.out_rate``.  Runs on ``cuda`` unless ``--device`` names another
 device (no fallback).  Parameters are read in the JAX package's ``.npz``
-layout (``cli.train --export_params``); ``--seed`` selects the same noise
-as the JAX CLI's.
+layout (``cli.train --export_params``) or its default flax ``.msgpack``;
+``--seed`` selects the same noise as the JAX CLI's.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--output_path", required=True)
     p.add_argument("--config_path", default=None)
     p.add_argument("--params_path", default=None,
-                   help="full parameter tree (.npz)")
+                   help="full parameter tree (.npz or .msgpack)")
     p.add_argument("--neural_vocoder", action="store_true",
                    help="legacy spelling of --vocoder ddsp")
     p.add_argument("--vocoder", choices=["dsp", "ddsp", "wave"],

@@ -19,7 +19,8 @@ from realtime_yukarin_tpu_torch.ops import dft
 
 def band_aperiodicity_from_power(P: torch.Tensor, f0: torch.Tensor,
                                  cfg: DspConfig) -> torch.Tensor:
-    """Hann-windowed power spectrogram [F, K] + f0 [F] -> ap [F, B]."""
+    """Hann-windowed power spectrogram [..., F, K] + f0 [..., F] -> ap
+    [..., F, B]."""
     N = cfg.fft_size
     B = cfg.num_ap_bands
     fs = float(cfg.sample_rate)
@@ -28,15 +29,15 @@ def band_aperiodicity_from_power(P: torch.Tensor, f0: torch.Tensor,
     w = dft.device_const(dft.autocorr_weights, N, like=P)     # [K]
 
     lag = torch.clamp(torch.round(fs / torch.clamp(f0, min=1.0)),
-                      cfg.lag_min, cfg.lag_max)               # [F] float
+                      cfg.lag_min, cfg.lag_max)               # [..., F]
     K = P.shape[-1]
     k = torch.arange(K, dtype=P.dtype, device=P.device)
-    cosv = torch.cos((2.0 * math.pi / N) * lag[:, None] * k)  # [F, K]
+    cosv = torch.cos((2.0 * math.pi / N) * lag[..., None] * k)  # [.., F, K]
     rho = (2.0 + torch.cos(2.0 * math.pi * lag / N)) / 3.0    # [F]
 
     Pw = P * w                                                # [F, K]
     r_lag = (Pw * cosv) @ masks.T
     r0 = Pw @ masks.T
-    p = r_lag / (r0 + 1e-20) / rho[:, None]
+    p = r_lag / (r0 + 1e-20) / rho[..., None]
     ap = torch.sqrt(torch.clamp(1.0 - p, 1e-6, 1.0))
-    return torch.where((f0 > 0)[:, None], ap, torch.ones_like(ap))
+    return torch.where((f0 > 0)[..., None], ap, torch.ones_like(ap))

@@ -28,18 +28,23 @@ def _bins_from_2(n: int) -> np.ndarray:
 
 def power_spectrogram(x: torch.Tensor, num_frames: int, cfg: DspConfig,
                       center_offset: int = 0) -> torch.Tensor:
-    """[T] -> |STFT|^2 [F, K], Hann window, frames centered at i*hop.
+    """[..., T] -> |STFT|^2 [..., F, K], Hann window, frames centered at
+    i*hop.
 
     The frame mean is removed first (f32 conditioning under a DC offset)
     and bins 0-1 are zeroed after: a periodic Hann window puts a constant
     input component exactly there, so every downstream stage is DC-
-    invariant.  Compute P once per step and pass it down."""
+    invariant.  The frames of every leading index go to the power-spectrum
+    kernel as one contiguous [rows, N] tensor: one launch for a batch of
+    streams.  Compute P once per step and pass it down."""
     N = cfg.fft_size
     frames = extract_centered_frames(x, num_frames, cfg.hop, N,
                                      center_offset)
+    lead = frames.shape[:-1]
     frames = frames - torch.mean(frames, dim=-1, keepdim=True)
-    P = power_spectrum_fused(frames.contiguous(), N)
-    return P * dft.device_const(_bins_from_2, N, like=P)[None, :]
+    P = power_spectrum_fused(frames.reshape(-1, N).contiguous(), N)
+    P = P * dft.device_const(_bins_from_2, N, like=P)
+    return P.reshape(*lead, P.shape[-1])
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,22 +64,26 @@ def _quefrency_times(n: int, fs: float) -> np.ndarray:
 
 def _lifted_half_cepstrum(P: torch.Tensor, f0: torch.Tensor, cfg: DspConfig
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(c [F, Q] lifted half cepstrum of the log envelope, lift_half):
+    """(c [..., F, Q] lifted half cepstrum of the log envelope, lift_half):
     pitch-adaptive linear-domain smoothing, per-frame relative floor, log,
-    cepstrum + lifter — one CUDA kernel on the card."""
+    cepstrum + lifter — one CUDA kernel on the card, launched once over the
+    frames of every leading index."""
     N = cfg.fft_size
     fs = float(cfg.sample_rate)
     f0_eff = torch.where(f0 > 0, f0, torch.full_like(f0, prim.DEFAULT_F0))
     t_q = dft.device_const(_quefrency_times, N, fs, like=P)
-    lift_half = torch.sinc(f0_eff[:, None] * t_q[None, :])
-    c = envelope_cepstrum_fused(P.contiguous(), lift_half, N,
+    lift_half = torch.sinc(f0_eff[..., None] * t_q)
+    K = P.shape[-1]
+    c = envelope_cepstrum_fused(P.reshape(-1, K).contiguous(),
+                                lift_half.reshape(-1, t_q.shape[0]), N,
                                 cfg.envelope_floor_db)
-    return c, lift_half
+    return c.reshape(*P.shape[:-1], c.shape[-1]), lift_half
 
 
 def log_envelope_and_mcep(P: torch.Tensor, f0: torch.Tensor, cfg: DspConfig
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(LOG power envelope [F, K], mel-cepstrum [F, M+1]) from the shared
+    """(LOG power envelope [..., F, K], mel-cepstrum [..., F, M+1]) from the
+    shared
     lifted half cepstrum; mc uses the folded basis."""
     N = cfg.fft_size
     c, _ = _lifted_half_cepstrum(P, f0, cfg)

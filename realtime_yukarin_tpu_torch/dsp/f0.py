@@ -19,6 +19,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as Fn
 
 from realtime_yukarin_tpu_torch.config import DspConfig
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
@@ -97,10 +98,14 @@ def _cmnd_and_energy(x: torch.Tensor, num_frames: int, cfg: DspConfig,
                      center_offset: int = 0
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """Framing, anti-alias + decimate, per-frame mean removal, CMND.
-    Returns (dp [F, lag_max_d+1], frame energy e0 [F])."""
+    x [..., T]; returns (dp [..., F, lag_max_d+1], frame energy e0
+    [..., F]).  The frames of every leading index go through the matmuls
+    as one batch of rows."""
     hop, W = cfg.hop, cfg.f0_window_d
     frames = extract_centered_frames(x, num_frames, hop, cfg.f0_frame_len,
                                      center_offset)
+    lead = frames.shape[:-1]
+    frames = frames.reshape(-1, frames.shape[-1])
     if cfg.f0_decimation > 1:
         D = dft.device_const(_decim_matrix, cfg.f0_decimation,
                              cfg.f0_aa_half, cfg.f0_frame_len_d, like=x)
@@ -109,7 +114,7 @@ def _cmnd_and_energy(x: torch.Tensor, num_frames: int, cfg: DspConfig,
     d = difference_function(frames, W, cfg.lag_max_d)
     dp = cmnd(d)                                              # [F, lmax+1]
     e0 = torch.sum(frames[:, :W] ** 2, dim=1)
-    return dp, e0
+    return dp.reshape(*lead, dp.shape[-1]), e0.reshape(lead)
 
 
 def _parabolic(dm1, d0, dp1, tau, lmin, lmax, dtype):
@@ -224,11 +229,16 @@ def _candidates_from_cmnd(dp: torch.Tensor, e0: torch.Tensor, cfg: DspConfig
 
 def f0_raw_and_candidates(x: torch.Tensor, num_frames: int, cfg: DspConfig,
                           center_offset: int = 0):
-    """(raw f0 [F], cand_f0 [F, K], emis [F, K]) from ONE CMND pass."""
+    """(raw f0 [..., F], cand_f0 [..., F, K], emis [..., F, K]) from ONE
+    CMND pass over x [..., T]; the per-frame search runs on all frames of
+    every leading index as rows."""
     dp, e0 = _cmnd_and_energy(x, num_frames, cfg, center_offset)
+    lead = e0.shape
+    dp, e0 = dp.reshape(-1, dp.shape[-1]), e0.reshape(-1)
     raw = _select_f0_from_cmnd(dp, e0, cfg)
     cand, emis = _candidates_from_cmnd(dp, e0, cfg)
-    return raw, cand, emis
+    return (raw.reshape(lead), cand.reshape(*lead, cand.shape[-1]),
+            emis.reshape(*lead, emis.shape[-1]))
 
 
 def viterbi_snap(f0: torch.Tensor, cand_f0: torch.Tensor,
@@ -236,61 +246,61 @@ def viterbi_snap(f0: torch.Tensor, cand_f0: torch.Tensor,
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Bounded-window Viterbi contour selection over each frame's top-K
     candidates, window [i - f0_snap_left_eff, i + f0_snap_halo]; returns
-    (snapped f0 [F], the center's chosen candidate [F])."""
-    F = f0.shape[0]
-    K = cand_f0.shape[1]
+    (snapped f0 [..., F], the center's chosen candidate [..., F]).  f0
+    [..., F], cand_f0 / cand_cost [..., F, K]; the windows never cross a
+    leading index."""
+    F = f0.shape[-1]
+    K = cand_f0.shape[-1]
+    lead = f0.shape[:-1]
     Hl = cfg.f0_snap_left_eff
     Hr = cfg.f0_snap_halo
     dev, dt = f0.device, f0.dtype
     ks = torch.arange(K, device=dev)
     if Hl == 0 and Hr == 0:
-        k0 = torch.argmin(cand_cost, dim=1)
-        ch0 = torch.sum(torch.where(ks[None, :] == k0[:, None], cand_f0,
-                                    torch.zeros_like(cand_f0)), dim=1)
+        k0 = torch.argmin(cand_cost, dim=-1)
+        ch0 = torch.sum(torch.where(ks == k0[..., None], cand_f0,
+                                    torch.zeros_like(cand_f0)), dim=-1)
         return f0, ch0
     Wn = Hl + Hr + 1
     wt = cfg.f0_trans_weight
 
-    f0_p = torch.cat([torch.zeros(Hl, dtype=dt, device=dev), f0,
-                      torch.zeros(Hr, dtype=dt, device=dev)])
-    cf_p = torch.cat([torch.zeros((Hl, K), dtype=dt, device=dev), cand_f0,
-                      torch.zeros((Hr, K), dtype=dt, device=dev)])
-    cc_p = torch.cat([torch.full((Hl, K), _BIG, dtype=dt, device=dev),
-                      cand_cost,
-                      torch.full((Hr, K), _BIG, dtype=dt, device=dev)])
-    nb_f = torch.stack([cf_p[k: k + F] for k in range(Wn)], dim=1)
-    nb_c = torch.stack([cc_p[k: k + F] for k in range(Wn)], dim=1)
-    nb_v = torch.stack([f0_p[k: k + F] for k in range(Wn)], dim=1) > 0
-    act = nb_v & torch.any(nb_f > 0, dim=2)                   # [F, Wn]
-    lf = torch.log2(torch.clamp(nb_f, min=1e-6))              # [F, Wn, K]
+    f0_p = Fn.pad(f0, (Hl, Hr))
+    cf_p = Fn.pad(cand_f0, (0, 0, Hl, Hr))
+    cc_p = Fn.pad(cand_cost, (0, 0, Hl, Hr), value=_BIG)
+    nb_f = torch.stack([cf_p[..., k: k + F, :] for k in range(Wn)], dim=-2)
+    nb_c = torch.stack([cc_p[..., k: k + F, :] for k in range(Wn)], dim=-2)
+    nb_v = torch.stack([f0_p[..., k: k + F] for k in range(Wn)],
+                       dim=-1) > 0
+    act = nb_v & torch.any(nb_f > 0, dim=-1)                  # [..., F, Wn]
+    lf = torch.log2(torch.clamp(nb_f, min=1e-6))              # [.., F, Wn, K]
     zero = torch.zeros((), dtype=dt, device=dev)
 
     def half_pass(idxs):
         """Min-plus message from the window edge into the center."""
-        msg = torch.zeros((F, K), dtype=dt, device=dev)
-        lfp = torch.zeros((F, K), dtype=dt, device=dev)
-        has = torch.zeros((F,), dtype=torch.bool, device=dev)
+        msg = torch.zeros((*lead, F, K), dtype=dt, device=dev)
+        lfp = torch.zeros((*lead, F, K), dtype=dt, device=dev)
+        has = torch.zeros((*lead, F), dtype=torch.bool, device=dev)
         for j in idxs:
-            a = act[:, j]
-            trans = wt * torch.abs(lf[:, j][:, None, :] - lfp[:, :, None])
-            step = torch.amin(msg[:, :, None] + torch.where(
-                has[:, None, None], trans, zero), dim=1)     # [F, K]
-            new = nb_c[:, j] + step
-            msg = torch.where(a[:, None], new, msg)
-            lfp = torch.where(a[:, None], lf[:, j], lfp)
+            a = act[..., j]
+            trans = wt * torch.abs(lf[..., j, None, :] - lfp[..., :, None])
+            step = torch.amin(msg[..., :, None] + torch.where(
+                has[..., None, None], trans, zero), dim=-2)  # [..., F, K]
+            new = nb_c[..., j, :] + step
+            msg = torch.where(a[..., None], new, msg)
+            lfp = torch.where(a[..., None], lf[..., j, :], lfp)
             has = has | a
-        tr = wt * torch.abs(lf[:, Hl][:, None, :] - lfp[:, :, None])
-        return torch.amin(msg[:, :, None] + torch.where(
-            has[:, None, None], tr, zero), dim=1)            # [F, K]
+        tr = wt * torch.abs(lf[..., Hl, None, :] - lfp[..., :, None])
+        return torch.amin(msg[..., :, None] + torch.where(
+            has[..., None, None], tr, zero), dim=-2)         # [..., F, K]
 
     alpha = half_pass(range(0, Hl))
     beta = half_pass(range(Wn - 1, Hl, -1))
-    total = alpha + beta + nb_c[:, Hl]
-    k_star = torch.argmin(total, dim=1)
-    choice = torch.sum(torch.where(ks[None, :] == k_star[:, None],
-                                   nb_f[:, Hl], torch.zeros_like(nb_f[:, Hl])),
-                       dim=1)
-    apply = (f0 > 0) & act[:, Hl] & (choice > 0)
+    total = alpha + beta + nb_c[..., Hl, :]
+    k_star = torch.argmin(total, dim=-1)
+    center = nb_f[..., Hl, :]
+    choice = torch.sum(torch.where(ks == k_star[..., None], center,
+                                   torch.zeros_like(center)), dim=-1)
+    apply = (f0 > 0) & act[..., Hl] & (choice > 0)
     return torch.where(apply, choice, f0), choice
 
 
@@ -318,7 +328,8 @@ def voicing_revision(x: torch.Tensor, f0: torch.Tensor, choice: torch.Tensor,
                      num_frames: int, cfg: DspConfig, center_offset: int,
                      P: torch.Tensor) -> torch.Tensor:
     """Full-rate band-evidence voicing revision (D4C LoveTrain role),
-    frame-local given (f0, choice) and the shared power spectrogram P:
+    frame-local given (f0, choice) [..., F] and the shared power
+    spectrogram P [..., F, K] of x [..., T]:
     DEMOTE a voiced frame whose hop-aligned block window holds a
     near-silent block; RESCUE an unvoiced frame whose lattice choice shows
     high low-band periodicity with enough low-band energy."""
@@ -329,17 +340,17 @@ def voicing_revision(x: torch.Tensor, f0: torch.Tensor, choice: torch.Tensor,
     eb = extract_centered_frames(x, num_frames + M, hop, hop,
                                  center_offset - (M // 2) * hop + hop // 2)
     e = torch.sum((eb - torch.mean(eb, dim=-1, keepdim=True)) ** 2,
-                  dim=-1)                                     # [F + M]
-    be = torch.stack([e[k: k + num_frames] for k in range(M)], dim=1)
-    conf = torch.amin(be, dim=1) / (torch.mean(be, dim=1) + 1e-20)
+                  dim=-1)                                     # [..., F + M]
+    be = torch.stack([e[..., k: k + num_frames] for k in range(M)], dim=-1)
+    conf = torch.amin(be, dim=-1) / (torch.mean(be, dim=-1) + 1e-20)
     energy_ok = conf >= cfg.voicing_block_ratio
 
     hp = _hp_mask(cfg, P)
     w_low = dft.device_const(_low_band_mask, N, cfg.sample_rate,
                              cfg.voicing_low_band_hz, like=P) * hp
-    Pl = P * w_low[None, :]
-    low_frac = (torch.sum(Pl, dim=1)
-                / (torch.sum(P * hp[None, :], dim=1) + 1e-20))
+    Pl = P * w_low
+    low_frac = (torch.sum(Pl, dim=-1)
+                / (torch.sum(P * hp, dim=-1) + 1e-20))
     lag = torch.round(fs / torch.clamp(choice, min=1.0))
     rho = (2.0 + torch.cos(2.0 * math.pi * lag / N)) / 3.0
     r0 = dft.autocorr_at_lag(Pl, torch.zeros_like(lag), N)
@@ -355,14 +366,14 @@ def voicing_revision(x: torch.Tensor, f0: torch.Tensor, choice: torch.Tensor,
 def refine_f0_from_power(P: torch.Tensor, f0: torch.Tensor, cfg: DspConfig,
                          iters: int = 2) -> torch.Tensor:
     """Full-rate F0 refinement (StoneMask role) on the shared Hann power
-    spectrogram [F, K]: window-ACF-corrected autocorrelation at the
+    spectrogram [..., F, K]: window-ACF-corrected autocorrelation at the
     integer lags around the coarse period (row-local cosine contractions),
     subharmonic correction first, then two parabolic fits."""
     N = cfg.fft_size
     fs = float(cfg.sample_rate)
     voiced = f0 > 0
     lag = fs / torch.clamp(f0, min=1.0)
-    P = P * _hp_mask(cfg, P)[None, :]
+    P = P * _hp_mask(cfg, P)
 
     def rho(l):
         return (2.0 + torch.cos(2.0 * math.pi * l / N)) / 3.0

@@ -84,33 +84,58 @@ def _kernel(t: np.ndarray, cutoff: float) -> np.ndarray:
 @functools.lru_cache(maxsize=16)
 def _matrix_np(plan: ResamplePlan) -> np.ndarray:
     """[history + chunk_in, chunk_out] banded operator for one step: output
-    column n reads input position (n - delay_out)·M/L relative to the
-    chunk's first input sample, i.e. buffer row history + that."""
+    column n reads input position p = (n - delay_out)·M/L relative to the
+    chunk's first input sample, i.e. buffer row history + p.
+
+    Only the band is evaluated: the kernel is zero at |t| >= HALF_WIDTH,
+    so column n has non-zero rows only in (history + p - HALF_WIDTH,
+    history + p + HALF_WIDTH).  Each entry there is the same float64
+    expression as a dense evaluation's, so the matrix is the same value
+    for value; only a zero's sign may differ.  That is 2*HALF_WIDTH + 2
+    rows of each column instead of all history + chunk_in of them."""
     g = math.gcd(plan.rate_in, plan.rate_out)
     L, M = plan.rate_out // g, plan.rate_in // g
     cutoff = ROLLOFF * min(1.0, L / M)
-    rows = np.arange(plan.history + plan.chunk_in)[:, None]   # buffer index
+    n_rows = plan.history + plan.chunk_in
     n = np.arange(plan.chunk_out)[None, :]
     p = (n - plan.delay_out) * (M / L)          # input pos rel. chunk start
-    return _kernel(p - (rows - plan.history), cutoff).astype(np.float32)
+    # rows floor(p) + history - HALF_WIDTH ... + 2*HALF_WIDTH + 1 cover the
+    # open interval above
+    rows = (np.floor(p).astype(np.int64) + (plan.history - HALF_WIDTH)
+            + np.arange(2 * HALF_WIDTH + 2)[:, None])     # [W, chunk_out]
+    inside = (rows >= 0) & (rows < n_rows)
+    values = _kernel(p - (rows - plan.history), cutoff).astype(np.float32)
+    out = np.zeros((n_rows, plan.chunk_out), np.float32)
+    out[rows[inside], np.broadcast_to(n, rows.shape)[inside]] = \
+        values[inside]
+    return out
+
+
+def _matrix(plan: ResamplePlan, like: torch.Tensor) -> torch.Tensor:
+    return device_const(_matrix_np, plan, like=like)
 
 
 def init_carry(plan: ResamplePlan, device) -> torch.Tensor | None:
-    """Zero history (float32 on ``device``); None for an identity plan."""
-    return (None if plan.identity
-            else torch.zeros((plan.history,), device=device))
+    """Zero history (float32 on ``device``); None for an identity plan.
+    The plan's matrix is built and uploaded here, when a stream is made,
+    so that its first step does not pay for it."""
+    if plan.identity:
+        return None
+    carry = torch.zeros((plan.history,), device=device)
+    _matrix(plan, carry)
+    return carry
 
 
 def resample_chunk(carry: torch.Tensor | None, chunk: torch.Tensor,
                    plan: ResamplePlan
                    ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One streaming step: [chunk_in] -> [chunk_out], carry [history].  The
-    matrix is uploaded once per (plan, device)."""
+    """One streaming step: [..., chunk_in] -> [..., chunk_out], carry
+    [..., history] (one history per leading index)."""
     if plan.identity:
         return chunk, carry
-    buf = torch.cat([carry, chunk.to(carry)])
-    y = torch.matmul(buf, device_const(_matrix_np, plan, like=buf))
-    return y, buf[-plan.history:]
+    buf = torch.cat([carry, chunk.to(carry)], dim=-1)
+    y = torch.matmul(buf, _matrix(plan, buf))
+    return y, buf[..., -plan.history:]
 
 
 def resample_signal(x: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
@@ -127,5 +152,5 @@ def resample_signal(x: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
     xp = torch.nn.functional.pad(
         x, (plan.history, k * plan.chunk_in - T))
     windows = xp.unfold(-1, plan.history + plan.chunk_in, plan.chunk_in)
-    ys = torch.matmul(windows, device_const(_matrix_np, plan, like=x))
+    ys = torch.matmul(windows, _matrix(plan, x))
     return ys.reshape(k * plan.chunk_out)[:T_out]

@@ -113,15 +113,16 @@ def convert_mc_streamed(net: AcousticNet, mc_new: torch.Tensor,
                         dtype=torch.float32) -> tuple[torch.Tensor, tuple]:
     """Advance the stage-1 stack by the Fc newest input frames.
 
-    mc_new/f0_new: features of input frames [F - Fc, F); caches: per-block
-    [k-1, hidden] input tails.  Returns (residual [Fc, mc_dim] float32 for
-    output frames [F - ctx - Fc, F - ctx), new caches)."""
+    mc_new/f0_new: features of input frames [F - Fc, F), optionally with
+    one leading stream dim; caches: per-block [(N,) k-1, hidden] input
+    tails.  Returns (residual [(N,) Fc, mc_dim] float32 for output frames
+    [F - ctx - Fc, F - ctx), new caches)."""
     x = acoustic_inputs(mc_new, f0_new, model_cfg)
     z = conv1d_valid(x, net.stem, dtype)
     new_caches = []
     for cache, block in zip(caches, net.blocks):
-        z_in = torch.cat([cache, z])
-        new_caches.append(z_in[-(model_cfg.kernel_size - 1):])
+        z_in = torch.cat([cache, z], dim=-2)
+        new_caches.append(z_in[..., -(model_cfg.kernel_size - 1):, :])
         z = block(z_in, dtype)
     out = conv1d_valid(z, net.head, dtype)
     return out.float(), tuple(new_caches)

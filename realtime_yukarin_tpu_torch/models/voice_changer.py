@@ -257,21 +257,68 @@ def save_params_npz(params: dict, path: str) -> None:
     np.savez(path, **params_to_jax(params))
 
 
-def _read_npz(path: str) -> dict:
-    if not str(path).endswith(".npz"):
+_MSGPACK_NDARRAY = 1      # flax.serialization's ext type codes
+_MSGPACK_NPSCALAR = 3
+
+
+def _msgpack_ext(code: int, data: bytes):
+    import msgpack
+    if code == _MSGPACK_NDARRAY:
+        shape, dtype, buf = msgpack.unpackb(data, raw=True)
+        return np.frombuffer(buf, dtype=np.dtype(dtype.decode())
+                             ).reshape(shape)
+    if code == _MSGPACK_NPSCALAR:
+        dtype, buf = msgpack.unpackb(data, raw=True)
+        return np.frombuffer(buf, dtype=np.dtype(dtype.decode()))[0]
+    raise ValueError(f"msgpack ext type {code} is not a flax array")
+
+
+def _flatten_tree(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _read_msgpack(path: str) -> dict:
+    """A flax ``.msgpack`` snapshot (``flax.serialization.to_bytes`` of a
+    state dict: nested string-keyed maps whose leaves are ext type 1,
+    ``(shape, dtype name, C-order bytes)``, or ext type 3 for NumPy
+    scalars) as the slash-joined ``flatten_params`` layout, without flax.
+    """
+    try:
+        import msgpack
+    except ImportError as e:
         raise ValueError(
-            f"{path}: the port reads parameters in the JAX package's .npz "
-            f"layout only (written by `cli.train --export_params x.npz` of "
-            f"either package, or the JAX package's save_params(params, "
-            f"'x.npz')); msgpack snapshots need flax")
+            f"{path}: reading a .msgpack snapshot needs the msgpack module, "
+            f"which is not installed; without it the port reads parameters "
+            f"in the JAX package's .npz layout only (written by "
+            f"`cli.train --export_params x.npz` of either package, or the "
+            f"JAX package's save_params(params, 'x.npz'))") from e
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=_msgpack_ext, raw=False)
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: not a flax state dict")
+    return _flatten_tree(tree)
+
+
+def _read_params(path: str) -> dict:
+    """{flax name: array} from a JAX package snapshot: ``.npz``, or flax
+    ``.msgpack`` (every other suffix, as the JAX package's
+    ``load_params`` reads it)."""
+    if not str(path).endswith(".npz"):
+        return _read_msgpack(path)
     with np.load(path, allow_pickle=False) as d:
         return dict(d)
 
 
 def load_params_npz(path: str, cfg: Config, device="cpu") -> dict:
-    """Strict loader for the JAX package's ``.npz`` snapshots (see
-    :func:`params_from_jax`)."""
-    return params_from_jax(_read_npz(path), cfg, device)
+    """Strict loader for the JAX package's ``.npz`` and ``.msgpack``
+    snapshots (see :func:`params_from_jax`)."""
+    return params_from_jax(_read_params(path), cfg, device)
 
 
 def load_all_params(params: dict, cfg: Config,
@@ -284,7 +331,7 @@ def load_all_params(params: dict, cfg: Config,
     (full tree) -> per-stage subtree files (stage1/stage2/vocoder/
     vocoder_wave, each the ``flatten_params`` layout of that subtree) ->
     the F0 statistics ``.npz`` files (``mean``, ``std``).  Every parameter
-    file is a strict ``.npz`` (a ``.msgpack`` path raises)."""
+    file is read strictly, as ``.npz`` or flax ``.msgpack``."""
     device = params["f0_stats"]["src_mean"].device
     for full in (cfg.params_path, params_path):
         if full:
@@ -295,7 +342,7 @@ def load_all_params(params: dict, cfg: Config,
                       ("vocoder", cfg.vocoder_params_path),
                       ("vocoder_wave", cfg.vocoder_wave_params_path)):
         if path:
-            load_flax(params[key], _read_npz(path))
+            load_flax(params[key], _read_params(path))
     for path, mean_key, std_key in (
             (cfg.input_statistics_path, "src_mean", "src_std"),
             (cfg.target_statistics_path, "tgt_mean", "tgt_std")):

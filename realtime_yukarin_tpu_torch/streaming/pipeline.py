@@ -97,31 +97,60 @@ def _threefry2x32(key: tuple[int, int], x0: np.ndarray, x1: np.ndarray
     return x0, x1
 
 
+def _key_bits(key: tuple[int, int]) -> np.ndarray:
+    """``jax.random.bits(key, (3,), uint32)`` of a raw Threefry key (the
+    partitionable bit stream: word i enciphers the counter pair (0, i))."""
+    b0, b1 = _threefry2x32(key, np.zeros(3, np.uint32),
+                           np.arange(3, dtype=np.uint32))
+    return b0 ^ b1
+
+
+def _check_seed(seed: int) -> None:
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
+
+
 def noise_key_from_seed(seed: int) -> tuple[int, int, int]:
     """A stream's noise permutation from an integer seed: the three words
     ``jax.random.bits(jax.random.key(seed), (3,), uint32)`` gives (the
     default Threefry key and its partitionable bit stream, computed here
     with NumPy), so a seed means the same noise in both packages.  The
     key of a seed in [0, 2**32) is (0, seed)."""
-    if not 0 <= seed < 2 ** 32:
-        raise ValueError(f"seed must lie in [0, 2**32), got {seed}")
-    b0, b1 = _threefry2x32((0, seed), np.zeros(3, np.uint32),
-                           np.arange(3, dtype=np.uint32))
-    return noise_key_from_bits(b0 ^ b1)
+    _check_seed(seed)
+    return noise_key_from_bits(_key_bits((0, seed)))
 
 
-def frame_noise(noise_key: tuple[int, int, int], start_frame: int,
-                count: int, bins: int, like: torch.Tensor) -> torch.Tensor:
-    """Noise for global frames [start, start+count) -> [count, bins, 2].
+def lane_noise_keys(seed: int, num_streams: int
+                    ) -> list[tuple[int, int, int]]:
+    """The batched server's per-lane noise permutations: lane i reads the
+    bits of ``jax.random.fold_in(jax.random.key(seed), i)``, the JAX
+    package's lane keys.  ``fold_in(k, i)`` enciphers the counter pair
+    (0, i) under k, and its two output words are the new key."""
+    _check_seed(seed)
+    y0, y1 = _threefry2x32((0, seed), np.zeros(num_streams, np.uint32),
+                           np.arange(num_streams, dtype=np.uint32))
+    return [noise_key_from_bits(_key_bits((int(a), int(b))))
+            for a, b in zip(y0, y1)]
 
-    Frame i's gaussians are table row (pos*stride + offset + block*shift)
-    mod T with pos = i mod T and block = floor(i / T) mod T (floor
-    semantics: the first frames of a stream are negative)."""
-    offset, stride, shift = noise_key
+
+def frame_noise(noise_key, start_frame, count: int, bins: int,
+                like: torch.Tensor) -> torch.Tensor:
+    """Noise for global frames [start, start+count) -> [..., count, bins,
+    2].
+
+    ``noise_key`` is (offset, stride, shift) or an int64 tensor [..., 3]
+    of them, ``start_frame`` an int or an int64 tensor [...] (one per
+    stream).  Frame i's gaussians are table row (pos*stride + offset +
+    block*shift) mod T with pos = i mod T and block = floor(i / T) mod T
+    (floor semantics: the first frames of a stream are negative)."""
     T = NOISE_TABLE_FRAMES
+    dev = like.device
     table = device_const(_noise_table_np, bins, like=like)
-    gpos = start_frame + torch.arange(count, dtype=torch.int64,
-                                      device=like.device)
+    key = torch.as_tensor(noise_key, dtype=torch.int64, device=dev)
+    start = torch.as_tensor(start_frame, dtype=torch.int64, device=dev)
+    gpos = start[..., None] + torch.arange(count, dtype=torch.int64,
+                                           device=dev)
+    offset, stride, shift = (key[..., j, None] for j in range(3))
     pos = torch.remainder(gpos, T)
     block = torch.remainder(torch.div(gpos, T, rounding_mode="floor"), T)
     idx = torch.remainder(pos * stride + offset + block * shift, T)
@@ -129,16 +158,21 @@ def frame_noise(noise_key: tuple[int, int, int], start_frame: int,
 
 
 def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
-                   noise_key: tuple[int, int, int], cfg: Config,
-                   use_sr: bool = True, vocoder_mode: str = "dsp"
+                   noise_key, cfg: Config, use_sr: bool = True,
+                   vocoder_mode: str = "dsp"
                    ) -> tuple[torch.Tensor, StreamCarry]:
-    """One chunk in, one chunk out (constant D-frame latency).
+    """One chunk in, one chunk out (constant D-frame latency), for one
+    stream or a batch of them.
 
-    chunk: [chunk_in_samples] new input PCM at ``cfg.dsp.in_rate`` on the
-    carry's device.  Returns converted PCM [chunk_out_samples] at
-    ``cfg.dsp.out_rate`` and the next carry.  ``vocoder_mode`` ("dsp",
-    "ddsp" or "wave") must be the one the carry was made for
-    (:func:`init_stream`)."""
+    chunk: [..., chunk_in_samples] new input PCM at ``cfg.dsp.in_rate`` on
+    the carry's device; the leading dims (none for one stream, [N] for N
+    streams) are the carry's.  ``noise_key`` is (offset, stride, shift) or
+    an int64 tensor [..., 3] (one per stream).  Returns converted PCM
+    [..., chunk_out_samples] at ``cfg.dsp.out_rate`` and the next carry.
+    Every stream's frames go through each kernel together: one launch per
+    kernel per step, whatever N.  ``vocoder_mode`` ("dsp", "ddsp" or
+    "wave") must be the one the carry was made for (:func:`init_stream`).
+    """
     mode = resolve_vocoder_mode(False, vocoder_mode)
     geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
     dsp = cfg.dsp
@@ -152,7 +186,8 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
                                   input_plan(dsp, geo.chunk_samples))
 
     # 1. roll the wave buffer and append the new chunk
-    buf = torch.cat([carry.wave_buf[geo.chunk_samples:], chunk])
+    buf = torch.cat([carry.wave_buf[..., geo.chunk_samples:], chunk],
+                    dim=-1)
 
     # 2. analyse ONLY the newly final frames; raw F0 also for the E
     # trailing provisional frames, and the El raws before them come from
@@ -163,26 +198,26 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     off = geo.buf_frame0_offset + C * hop
     raw_fresh, cand_fresh, cost_fresh = f0_raw_and_candidates(
         buf, geo.fresh_frames, dsp, off)
-    raw_ext = torch.cat([carry.f0_raw_prev, raw_fresh])
-    cand_ext = torch.cat([carry.f0_cand_prev, cand_fresh])
-    cost_ext = torch.cat([carry.f0_cost_prev, cost_fresh])
+    raw_ext = torch.cat([carry.f0_raw_prev, raw_fresh], dim=-1)
+    cand_ext = torch.cat([carry.f0_cand_prev, cand_fresh], dim=-2)
+    cost_ext = torch.cat([carry.f0_cost_prev, cost_fresh], dim=-2)
     m_ext = median3(raw_ext)
     hl = dsp.f0_snap_left_eff
     hr = dsp.f0_snap_halo
     lo = El - hl                                  # m_ext index of frame C-hl
     win = slice(lo, lo + Fc + hl + hr)
-    snapped, choice = viterbi_snap(m_ext[win], cand_ext[win], cost_ext[win],
-                                   dsp)
+    snapped, choice = viterbi_snap(m_ext[..., win], cand_ext[..., win, :],
+                                   cost_ext[..., win, :], dsp)
     # ONE power spectrogram (one kernel launch) for voicing revision,
     # refinement, envelope and aperiodicity
     P = power_spectrogram(buf, Fc, dsp, off)
-    f0_final = voicing_revision(buf, snapped[hl: hl + Fc],
-                                choice[hl: hl + Fc], Fc, dsp, off, P=P)
+    f0_final = voicing_revision(buf, snapped[..., hl: hl + Fc],
+                                choice[..., hl: hl + Fc], Fc, dsp, off, P=P)
     ffresh = analyze_given_f0(buf, f0_final, Fc, dsp, off, refine=True, P=P)
 
-    f0_all = torch.cat([carry.f0_cache, ffresh.f0])           # [Fn - E]
-    mc_all = torch.cat([carry.mc_cache, ffresh.mc])
-    ap_all = torch.cat([carry.ap_cache, ffresh.ap])
+    f0_all = torch.cat([carry.f0_cache, ffresh.f0], dim=-1)   # [.., Fn - E]
+    mc_all = torch.cat([carry.mc_cache, ffresh.mc], dim=-2)
+    ap_all = torch.cat([carry.ap_cache, ffresh.ap], dim=-2)
 
     # 3. convert: stage 1 advances by the Fc newly final input frames via
     # its per-layer caches; its outputs (lagging c1 frames) extend the
@@ -199,11 +234,12 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     Lv = L + 2 * ctx_v
     s = mctx - ctx_v                          # first frame synthesis reads
     res, stage1_acts = convert_mc_streamed(
-        params["stage1"], mc_all[Fn - E - Fc: Fn - E],
-        f0_all[Fn - E - Fc: Fn - E], carry.stage1_acts, cfg.acoustic, dtype)
-    mc_c_fresh = mc_all[Fn - E - c1 - Fc: Fn - E - c1] + res
-    mc_c_need = torch.cat([carry.mc_c_cache, mc_c_fresh])
-    f0c_need = convert_f0_stats(f0_all[c1 + E: Fn - c1 - E],
+        params["stage1"], mc_all[..., Fn - E - Fc: Fn - E, :],
+        f0_all[..., Fn - E - Fc: Fn - E], carry.stage1_acts, cfg.acoustic,
+        dtype)
+    mc_c_fresh = mc_all[..., Fn - E - c1 - Fc: Fn - E - c1, :] + res
+    mc_c_need = torch.cat([carry.mc_c_cache, mc_c_fresh], dim=-2)
+    f0c_need = convert_f0_stats(f0_all[..., c1 + E: Fn - c1 - E],
                                 params["f0_stats"])
     env_low = decode_mcep(mc_c_need, dsp)
     if use_sr:
@@ -212,8 +248,9 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     else:
         env_mid = env_low
     # frame s sits at needed-array index ctx_sr (= s - (c1 + 1))
-    f0v, envv = f0c_need[ctx_sr: ctx_sr + Lv], env_mid[ctx_sr: ctx_sr + Lv]
-    apv, mcv = ap_all[s: s + Lv], mc_c_need[ctx_sr: ctx_sr + Lv]
+    need = slice(ctx_sr, ctx_sr + Lv)
+    f0v, envv = f0c_need[..., need], env_mid[..., need, :]
+    apv, mcv = ap_all[..., s: s + Lv, :], mc_c_need[..., need, :]
 
     # 4. synthesize Fc frames with position-deterministic noise
     noise = frame_noise(noise_key, carry.frame_pos, Fc, noise_bins(cfg),
@@ -222,10 +259,10 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
         amps, nmag, f0f, voiced = neural_vocoder_controls(
             params["vocoder"], f0v, envv, apv, mcv, cfg.vocoder_nn, dsp,
             dtype)
+        rows = slice(ctx_v, ctx_v + L)
         out, synth_carry = render(
-            amps[ctx_v: ctx_v + L], nmag[ctx_v: ctx_v + L - 1],
-            f0f[ctx_v: ctx_v + L], voiced[ctx_v: ctx_v + L], noise, dsp,
-            carry.synth)
+            amps[..., rows, :], nmag[..., ctx_v: ctx_v + L - 1, :],
+            f0f[..., rows], voiced[..., rows], noise, dsp, carry.synth)
     elif mode == "wave":
         out, synth_carry = waveform_vocode(
             params["vocoder_wave"], f0v, envv, apv, mcv, noise,
@@ -240,11 +277,12 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
 
     new_carry = StreamCarry(
         wave_buf=buf, synth=synth_carry, frame_pos=carry.frame_pos + Fc,
-        mc_c_cache=mc_c_need[Fc:], stage1_acts=stage1_acts,
-        f0_cache=f0_all[Fc:], mc_cache=mc_all[Fc:], ap_cache=ap_all[Fc:],
-        f0_raw_prev=raw_ext[Fc: Fc + El],
-        f0_cand_prev=cand_ext[Fc: Fc + El],
-        f0_cost_prev=cost_ext[Fc: Fc + El],
+        mc_c_cache=mc_c_need[..., Fc:, :], stage1_acts=stage1_acts,
+        f0_cache=f0_all[..., Fc:], mc_cache=mc_all[..., Fc:, :],
+        ap_cache=ap_all[..., Fc:, :],
+        f0_raw_prev=raw_ext[..., Fc: Fc + El],
+        f0_cand_prev=cand_ext[..., Fc: Fc + El, :],
+        f0_cost_prev=cost_ext[..., Fc: Fc + El, :],
         rs_in=rs_in, rs_out=rs_out)
     return out, new_carry
 

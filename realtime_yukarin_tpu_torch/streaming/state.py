@@ -137,16 +137,20 @@ class StreamGeometry:
 
 @dataclasses.dataclass
 class StreamCarry:
-    """Streaming state on the device (``frame_pos`` is a host integer).
+    """Streaming state on the device.
 
-    The feature caches hold the leading ``cache_frames`` analysis frames of
-    the next step's window: analysis is frame-local, so a frame analysed
-    when its window was complete never changes."""
+    One stream's carry has the shapes below; a carry of N streams (the
+    batched server's) has a leading [N] on every leaf, ``frame_pos``
+    included, since lanes that pause or reset part ways.  The feature
+    caches hold the leading ``cache_frames`` analysis frames of the next
+    step's window: analysis is frame-local, so a frame analysed when its
+    window was complete never changes."""
 
     wave_buf: torch.Tensor      # [buf_samples] rolling input window
     synth: SynthCarry | WaveCarry  # synthesizer state (WaveCarry in wave
     #                                mode)
-    frame_pos: int              # global index of the next output frame
+    frame_pos: torch.Tensor     # [] int64 global index of the next output
+    #                             frame
     f0_cache: torch.Tensor      # [C] final (snapped+refined) F0 per frame
     mc_cache: torch.Tensor      # [C, M+1] mel-cepstra of cached frames
     ap_cache: torch.Tensor      # [C, B] band aperiodicity of cached frames
@@ -186,7 +190,8 @@ class StreamCarry:
         return cls(
             wave_buf=zeros,
             synth=synth,
-            frame_pos=-geo.delay_frames,
+            frame_pos=torch.tensor(-geo.delay_frames, dtype=torch.int64,
+                                   device=device),
             f0_cache=sil.f0, mc_cache=sil.mc, ap_cache=sil.ap,
             f0_raw_prev=torch.zeros((geo.f0_left,), dtype=dt, device=device),
             # zero candidates = inactive frames for the window Viterbi —
@@ -205,3 +210,26 @@ class StreamCarry:
 
 def noise_bins(cfg: Config) -> int:
     return prim.noise_fft_size(cfg.dsp.hop) // 2 + 1
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensors of a carry (a :class:`StreamCarry`, its
+    synthesizer carries and tuples of them), leaf by leaf across ``tree``
+    and ``rest``; None leaves stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, *leaves) for leaves in zip(tree, *rest))
+    return type(tree)(**{
+        f.name: tree_map(fn, getattr(tree, f.name),
+                         *(getattr(r, f.name) for r in rest))
+        for f in dataclasses.fields(tree)})
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a carry in :func:`tree_map`'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out

@@ -1,7 +1,8 @@
 """Host-facing streaming voice changer (PyTorch port of
 ``streaming/stream.py``): one object owns the carry on the device and
-feeds :func:`streaming_step`; a :class:`SegmentBuffer` re-chunks
-arbitrary-size audio callbacks onto the static chunk grid."""
+feeds :func:`streaming_step` (its one-stream case: no leading dim); a
+:class:`SegmentBuffer` re-chunks arbitrary-size audio callbacks onto the
+static chunk grid."""
 
 from __future__ import annotations
 
@@ -37,8 +38,9 @@ class VoiceChangerStream:
         self._cfg = cfg
         self._use_sr = use_sr
         self._mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
-        self._noise_key = (noise_key if noise_key is not None
-                           else noise_key_from_seed(seed))
+        self._noise_key = torch.tensor(
+            noise_key if noise_key is not None else noise_key_from_seed(seed),
+            dtype=torch.int64, device=self.device)
         self._carry, self._geo = init_stream(self._params, cfg, use_sr,
                                              vocoder_mode=self._mode,
                                              device=self.device)

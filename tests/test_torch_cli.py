@@ -3,6 +3,8 @@ on a tiny YAML config, both loading the same ``.npz`` weights; the same
 sample count, and the same audio within 2e-3 of the peak (the streamed ==
 offline tolerance)."""
 
+import sys
+
 import numpy as np
 import pytest
 
@@ -58,8 +60,12 @@ def test_convert_cli_matches_jax(files, tmp_path, extra):
     assert rel_to_peak(yt, yj) < 2e-3
 
 
-def test_convert_cli_refuses_msgpack(files, tmp_path):
+def test_convert_cli_refuses_msgpack(files, tmp_path, monkeypatch):
+    """Without the msgpack module the port refuses a .msgpack path and
+    names the .npz layout it reads without it."""
+    monkeypatch.setitem(sys.modules, "msgpack", None)
     cfg_path, wav, _ = files
+    (tmp_path / "params.msgpack").write_bytes(b"\x80")
     with pytest.raises(ValueError, match=r"\.npz layout"):
         t_main(["--input_path", wav, "--output_path", str(tmp_path / "o.wav"),
                 "--config_path", cfg_path, "--params_path",

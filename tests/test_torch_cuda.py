@@ -236,3 +236,22 @@ def test_offline_convert_through_the_kernels_matches_cpu(device, mode):
                for k in chip_smoke.FORWARD_KERNELS)
     _, err = chip_smoke.abs_rel_err(out[device], out["cpu"])
     assert err <= 2e-3, err
+
+
+def test_batched_server_on_the_card(device):
+    """64 streams in one step: lanes against single streams, a paused
+    lane bit for bit, a reset lane, one launch of each forward kernel per
+    step at R = 1280, no host sync in ``step_device`` (chip_smoke.py
+    phase 12; raises on any failure)."""
+    launches = chip_smoke.batched_phase(Config())
+    assert all(launches[k] == chip_smoke.BATCH_STEPS
+               for k in chip_smoke.FORWARD_KERNELS)
+
+
+@pytest.mark.parametrize("phase", ["socket_phase", "pipelined_phase",
+                                   "first_chunk_phase"])
+def test_host_edges_on_the_card(device, phase):
+    """The socket server against single streams, the pipelined stream
+    bit for bit and its soak, a 48 kHz client's first chunk
+    (chip_smoke.py phases 14-16; each raises on failure)."""
+    getattr(chip_smoke, phase)(Config())

@@ -7,6 +7,7 @@ contract ``tests/test_streaming.py`` gates for the JAX package, at its
 tolerances, on the tiny model config in float32."""
 
 import dataclasses
+import sys
 
 import numpy as np
 import pytest
@@ -152,7 +153,10 @@ def test_load_all_params_matches_jax(setup, tmp_path):
     assert float(t_init["f0_stats"]["tgt_std"]) == pytest.approx(0.25)
 
 
-def test_load_all_params_refuses_msgpack(setup, tmp_path):
+def test_load_all_params_refuses_msgpack(setup, tmp_path, monkeypatch):
+    """Without the msgpack module a .msgpack path is refused, naming the
+    .npz layout (tests/test_torch_msgpack.py reads it with the module)."""
+    monkeypatch.setitem(sys.modules, "msgpack", None)
     _, tc, _, tp, _ = setup
     for over in ({"params_path": str(tmp_path / "p.msgpack")},
                  {"stage2_params_path": str(tmp_path / "s2.msgpack")}):

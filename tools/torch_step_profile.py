@@ -33,69 +33,35 @@ from __future__ import annotations
 
 import argparse
 import pathlib
-import re
 import sys
-import time
-
-import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-# a record_function span's name ("Optimizer.step#AdamW.step"); kernel names
-# carry templates, scopes and parentheses
-ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
-# each port kernel's CUDA functions (csrc/<name>.cu), matched as
-# "<function><" or "<function>(" in the profiler's demangled names
-PORT_KERNELS = {
-    "harmonic_bank": ("harmonic_bank_kernel",),
-    "power_spectrum": ("power_spectrum_kernel",),
-    "envelope_cepstrum": ("envelope_cepstrum_kernel",),
-    "harmonic_bank_bwd": ("harmonic_bank_bwd_kernel",),
-}
-
 
 def profile_window(label: str, fn, n: int) -> None:
-    """Trace ``n`` calls of ``fn`` and print the window's numbers."""
+    """Trace ``n`` calls of ``fn`` (``chip_smoke.profile_stats``) and print
+    the window's numbers."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # GPU-side spans of user annotations (``Optimizer.step#AdamW.step``)
-    # overlap the kernels they contain: not device work of their own
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and not ANNOTATION.match(e.name)]
-    busy_us = sum(e.device_time for e in events)
+    import chip_smoke
+    st = chip_smoke.profile_stats(fn, n)
     print(f"[profile] {label}: {torch.cuda.get_device_name(0)}; {n} steps; "
-          f"host wall {wall / n * 1e3:.3f} ms/step")
-    if not events:
+          f"host wall {st['wall_ms']:.3f} ms/step")
+    if st["idle"] is None:
         print(f"[profile] {label}: device time: not measured (no CUDA "
               f"events traced)")
         return
-    print(f"[profile] {label}: device busy {busy_us / n / 1e3:.3f} ms/step, "
-          f"idle share {1 - busy_us * 1e-6 / wall:.3f}, "
-          f"{len(events) / n:.1f} GPU launches/step")
-    by_name: dict[str, list] = {}
-    for e in events:
-        by_name.setdefault(e.name, []).append(e.device_time)
-    rows = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))
+    print(f"[profile] {label}: device busy {st['busy_ms']:.3f} ms/step, "
+          f"idle share {st['idle']:.3f}, "
+          f"{st['gpu_launches']:.1f} GPU launches/step")
+    rows = sorted(st["by_name"].items(), key=lambda kv: -sum(kv[1]))
     for name, times in rows[:20]:
         print(f"[profile] {label}: {sum(times) / n:9.1f} us/step "
               f"{len(times) / n:6.1f} calls/step  {name[:90]}")
-    for kname, functions in PORT_KERNELS.items():
-        times = [t for name, ts in by_name.items()
-                 if any(f + c in name for f in functions for c in "<(")
-                 for t in ts]
+    for kname, (us, per_call) in st["port"].items():
         print(f"[profile] {label}: port kernel {kname}: "
-              f"{np.mean(times) if times else float('nan'):.1f} us/launch, "
-              f"{len(times) / n:.1f} launches/step")
+              f"{float('nan') if us is None else us:.1f} us/launch, "
+              f"{per_call:.1f} launches/step")
 
 
 def profile_stream(steps: int, mode: str, rate: int | None) -> None:
