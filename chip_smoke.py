@@ -13,12 +13,13 @@ non-zero):
 3. kernels: each forward kernel against its plain PyTorch version on the
    card at R = 20 rows (one streaming step), R = 100 (one utterance of a
    training batch: what ``make_batch``'s analysis gives the power spectrum
-   and the envelope cepstrum), R = 600 (an offline conversion of 3 s: what
-   its analysis and render give all three), R = 800 (the batch: what
-   training's renders give the bank) and R = 1280 (64 streams' rows), and
-   the harmonic-bank
-   backward at R = 100 and R = 800 (all four outputs, and the training
-   step's launch for d_aL and d_aR only).  For each: the error against the
+   and the envelope cepstrum), R = 128 (the quality recipe's batch of
+   8 x 16 frames: the bank), R = 600 (an offline conversion of 3 s, a
+   prepared 3 s file: what its analysis and render give all three),
+   R = 800 (the batch: what training's renders give the bank; a prepared
+   3.3 s file's analysis) and R = 1280 (64 streams' rows), and the
+   harmonic-bank backward at R = 100, 128 and 800 (all four outputs, and
+   the training step's launch for d_aL and d_aR only).  For each: the error against the
    plain version and both against a float64 evaluation of the plain
    version (per output for the backward); CUDA-event times of the kernel,
    the plain version and the library yardstick (mean of 200 back-to-back
@@ -75,8 +76,22 @@ non-zero):
 15. ``PipelinedStream`` at depth 2 against the synchronous stream (bit for
    bit), then a 600-chunk soak with its dispatch and chunk latency;
 16. a 48 kHz client's stream creation and first chunk, from cold caches;
-17. the kernels line: one JSON object with every kernel's numbers;
-18. last line: ``{"ok": true, "device": {...}}``.
+17. the corpus training path: (a) 16 seeded formant pairs of 3.0 s /
+   3.3 s prepared on the card at ``bucket_frames=200`` (one launch of
+   kernels 2 and 3 per file at R = 600 / 800): wall time, audio seconds
+   per second, the DTW's share, launches; one pair prepared again on the
+   CPU against it (identical voicing, features within 2e-3 of the peak,
+   DTW paths identical or of equal cost within 1e-5); (b) ``cli.train
+   --prepared_dir`` at the default Config in float32, batch 8 x 100
+   frames, 3 steps, then ``--finetune_converted 3`` and
+   ``--export_params``: finite losses, every subtree moved by training,
+   only the two vocoders by the fine-tune, kernels 1 and 4 at least once
+   per step; (c) ``tools/torch_quality.py``'s recipe (tiny config, 600
+   steps, the 300-step fine-tune) on the card: its JSON, each number's
+   distance from ``QUALITY.json``, and the JAX package's held-out gates
+   (tests/test_full_chain.py);
+18. the kernels line: one JSON object with every kernel's numbers;
+19. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is not available or the port's
 package is missing.  Imports nothing of JAX.
@@ -113,13 +128,16 @@ REPLACES = {
     "harmonic_bank_bwd": "realtime_yukarin_tpu/ops/pallas_synth.py:101",
 }
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 100, 3
+# rows of one training batch of the quality recipe (8 x 16 frames)
+QUALITY_ROWS = 8 * 16
 # frames of one offline conversion of SECONDS at the default 24 kHz, hop 120
 OFFLINE_FRAMES = int(SECONDS * 24000) // 120
 # Forward kernels' row counts in phase 3: streaming step, one utterance of
-# a training batch (the analysis), an offline conversion (all three), the
-# batch (the bank), 64 streams
-KERNEL_ROWS = (20, TRAIN_FRAMES, OFFLINE_FRAMES, TRAIN_BATCH * TRAIN_FRAMES,
-               1280)
+# a training batch (the analysis), the quality recipe's batch (the bank),
+# an offline conversion and a prepared 3 s file (all three), the batch (the
+# bank) and a prepared 3.3 s file (the analysis), 64 streams
+KERNEL_ROWS = (20, TRAIN_FRAMES, QUALITY_ROWS, OFFLINE_FRAMES,
+               TRAIN_BATCH * TRAIN_FRAMES, 1280)
 # The analysis kernels also at ragged row counts (one row, one past a row
 # group, one past 64 streams) and at fft_size 1024 (K = 513, the COMPAT
 # configuration), checked but not profiled
@@ -1269,6 +1287,290 @@ def first_chunk_phase(cfg) -> None:
         raise AssertionError("48 kHz first chunk wrong-sized or non-finite")
 
 
+# -- the corpus training path and the quality recipe (phase 17) -------------
+
+# Phase 17 (a): CORPUS_PAIRS seeded formant pairs of CORPUS_SECONDS source /
+# target audio, prepared at the CLI's default bucket (R = 600 / 800 rows per
+# analysis launch); (b) cli.train at the default Config in float32 on them
+CORPUS_PAIRS, CORPUS_SECONDS, CORPUS_BUCKET = 16, (3.0, 3.3), 200
+CORPUS_STEPS, CORPUS_FINETUNE = 3, 3
+# DTW: CUDA and CPU paths of one pair identical, or, where they part, both
+# paths' costs under the CUDA cost matrix within this (relative)
+DTW_COST_TOL = 1e-5
+# (c): tools/torch_quality.py's recipe: training and fine-tune steps
+QUALITY_STEPS, QUALITY_FINETUNE = 600, 300
+QUALITY_JSON = "QUALITY.json"
+
+
+def _npz(path) -> dict:
+    with np.load(path) as z:
+        return dict(z)
+
+
+def _wav_pairs(root, n: int, fs: int) -> tuple:
+    """Write n seeded formant pairs (the quality corpus's two speakers at
+    CORPUS_SECONDS); returns (src dir, tgt dir, seconds of audio)."""
+    import pathlib
+    from realtime_yukarin_tpu_torch.training.data import (SRC_SPEAKER,
+                                                          TGT_SPEAKER,
+                                                          formant_utterance)
+    from realtime_yukarin_tpu_torch.utils.audio_io import write_wav
+    src, tgt = pathlib.Path(root) / "src", pathlib.Path(root) / "tgt"
+    src.mkdir()
+    tgt.mkdir()
+    rng = np.random.default_rng(SEED + 11)
+    s_src, s_tgt = CORPUS_SECONDS
+    for k in range(n):
+        write_wav(str(src / f"utt{k:02d}.wav"),
+                  formant_utterance(k, rng, s_src, fs, **SRC_SPEAKER), fs)
+        write_wav(str(tgt / f"utt{k:02d}.wav"),
+                  formant_utterance(k, rng, s_tgt, fs, **TGT_SPEAKER), fs)
+    return src, tgt, n * (s_src + s_tgt)
+
+
+def prepare_phase(cfg, root, dev) -> tuple[dict, object]:
+    """Phase 17 (a): prepare CORPUS_PAIRS pairs on the card (timed, the
+    DTW's share timed apart), then one pair again on the CPU against it.
+    Returns (launches, prepared dir)."""
+    import pathlib
+    import shutil
+    import torch
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.training import align, corpus
+
+    src, tgt, audio_s = _wav_pairs(root, CORPUS_PAIRS, cfg.dsp.sample_rate)
+    out = pathlib.Path(root) / "prep"
+    dtw_s = []
+    align_pair = corpus.align_pair
+
+    def timed_align(*a):
+        sync(dev)
+        t = time.perf_counter()
+        r = align_pair(*a)
+        sync(dev)
+        dtw_s.append(time.perf_counter() - t)
+        return r
+
+    corpus.align_pair = timed_align
+    try:
+        cuda.reset_counts()
+        t0 = time.perf_counter()
+        corpus.prepare_corpus(str(src), str(tgt), str(out), cfg,
+                              bucket_frames=CORPUS_BUCKET, verbose=False,
+                              device=dev)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        corpus.align_pair = align_pair
+    rows = sorted({corpus.frame_bucket(int(s * cfg.dsp.sample_rate)
+                                       // cfg.dsp.hop, CORPUS_BUCKET)
+                   for s in CORPUS_SECONDS})
+    print(f"[prepare] {CORPUS_PAIRS} pairs ({audio_s:.1f} s of audio) in "
+          f"{wall:.3f} s: x{audio_s / wall:.1f} audio seconds per second; "
+          f"DTW {sum(dtw_s):.3f} s ({sum(dtw_s) / wall:.3f} of the wall, "
+          f"{np.mean(dtw_s) * 1e3:.1f} ms per pair); launches {launches}; "
+          f"analysis rows per launch {rows}")
+    for k in ("power_spectrum", "envelope_cepstrum"):
+        if launches[k] != 2 * CORPUS_PAIRS:
+            raise AssertionError(f"{k} launched {launches[k]} times for "
+                                 f"{2 * CORPUS_PAIRS} files")
+    stats = {n: _npz(out / f"stats_{n}.npz") for n in ("input", "target")}
+    print("[prepare] F0 stats " + ", ".join(
+        f"{n}: mean {float(s['mean']):.4f} std {float(s['std']):.4f}"
+        for n, s in stats.items()))
+
+    # one pair again on the CPU (the plain versions), against the card's
+    one = pathlib.Path(root) / "one"
+    for d, name in ((src, "src"), (tgt, "tgt")):
+        (one / name).mkdir(parents=True)
+        shutil.copy(d / "utt00.wav", one / name / "utt00.wav")
+    corpus.prepare_corpus(str(one / "src"), str(one / "tgt"),
+                          str(one / "prep"), cfg,
+                          bucket_frames=CORPUS_BUCKET, verbose=False,
+                          device="cpu")
+    c, h = _npz(out / "utt00.npz"), _npz(one / "prep" / "utt00.npz")
+    errs = {}
+    for side in ("src", "voc"):
+        if not ((c[f"f0_{side}"] > 0) == (h[f"f0_{side}"] > 0)).all():
+            raise AssertionError(f"prepare cuda vs cpu: {side} voicing "
+                                 f"differs")
+        for k in ("f0", "mc", "ap", "env"):
+            errs[f"{k}_{side}"] = rel_peak(c[f"{k}_{side}"],
+                                           h[f"{k}_{side}"])
+    paths = {}
+    for name, d, on in (("cuda", c, dev), ("cpu", h, "cpu")):
+        paths[name] = align.dtw_path(
+            torch.from_numpy(d["mc_src"][:, 1:]).to(on),
+            torch.from_numpy(d["mc_voc"][:, 1:]).to(on)).cpu().numpy()
+    same_path = bool((paths["cuda"] == paths["cpu"]).all())
+    C = align.cost_matrix(torch.from_numpy(c["mc_src"][:, 1:]).to(dev),
+                          torch.from_numpy(c["mc_voc"][:, 1:]).to(dev)
+                          ).cpu().numpy()
+    cost = {k: align.path_cost(C, p) for k, p in paths.items()}
+    cost_rel = abs(cost["cuda"] - cost["cpu"]) / abs(cost["cuda"])
+    print(f"[prepare] utt00 cuda vs cpu: voicing identical, /peak "
+          + " ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol 2e-3); DTW paths identical={same_path} "
+          f"({int((paths['cuda'] != paths['cpu']).sum())} of "
+          f"{len(paths['cpu'])} frames apart), path costs under the CUDA "
+          f"matrix {cost['cuda']:.6g} / {cost['cpu']:.6g} (rel "
+          f"{cost_rel:.3e}, tol {DTW_COST_TOL:g})")
+    if max(errs.values()) > 2e-3:
+        raise AssertionError(f"prepare cuda vs cpu: features apart {errs}")
+    if not same_path and cost_rel > DTW_COST_TOL:
+        raise AssertionError(f"prepare cuda vs cpu: DTW paths part and "
+                             f"their costs differ by {cost_rel:.3e}")
+    if same_path:
+        for k in ("f0", "mc", "ap", "env"):
+            e = rel_peak(c[f"{k}_tgt"], h[f"{k}_tgt"])
+            if e > 2e-3:
+                raise AssertionError(f"prepare cuda vs cpu: {k}_tgt {e}")
+    return launches, out
+
+
+def corpus_train_phase(cfg, prep, root, dev) -> dict:
+    """Phase 17 (b): ``cli.train --prepared_dir`` at the default Config in
+    float32, then ``--finetune_converted`` and ``--export_params``.
+    Returns the launches."""
+    import contextlib
+    import io
+    import pathlib
+    import torch
+    from realtime_yukarin_tpu_torch.cli import train as train_cli
+    from realtime_yukarin_tpu_torch.models import voice_changer as vc
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.training import checkpoint, train_step
+
+    root = pathlib.Path(root)
+    cfg_path = root / "float32.yaml"
+    cfg_path.write_text("compute_dtype: float32\n")
+    out, ckpt = root / "params.npz", root / "ckpt"
+    argv = ["--prepared_dir", str(prep), "--steps", str(CORPUS_STEPS),
+            "--batch_size", str(TRAIN_BATCH), "--crop_frames",
+            str(TRAIN_FRAMES), "--log_every", "1", "--config_path",
+            str(cfg_path), "--ckpt_dir", str(ckpt), "--finetune_converted",
+            str(CORPUS_FINETUNE), "--export_params", str(out), "--device",
+            str(dev)]
+    cuda.reset_counts()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        train_cli.main(argv)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for line in log.getvalue().splitlines():
+        print(line)
+    losses = [float(m.group(1)) for m in re.finditer(
+        r"step \d+/\d+ .*?\bloss=(\S+)", log.getvalue())]
+    steps = CORPUS_STEPS + CORPUS_FINETUNE
+    print(f"[corpus-train] cli.train {' '.join(argv[:2])} ... in {wall:.1f} "
+          f"s: {CORPUS_STEPS} steps + {CORPUS_FINETUNE} fine-tune steps, "
+          f"losses {losses}; launches {launches}")
+    if len(losses) != CORPUS_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"corpus training losses {losses}")
+    for k in ("harmonic_bank", "harmonic_bank_bwd"):
+        if launches[k] < steps:
+            raise AssertionError(f"{k} launched {launches[k]} times in "
+                                 f"{steps} steps")
+    # the trained tree (the checkpoint at the last step) and the export
+    run_cfg = type(cfg).from_yaml(cfg_path)
+    init = vc.init_params(run_cfg, torch.Generator().manual_seed(
+        run_cfg.seed))
+    state, at = checkpoint.restore_checkpoint(
+        ckpt, train_step.init_train_state(init, "cpu"))
+    trained = vc.params_to_jax(state.params)
+    exported = vc.params_to_jax(vc.load_params_npz(str(out), run_cfg))
+    start = vc.params_to_jax(init)
+
+    def subtree_moved(a, b):
+        return {s: any(not np.array_equal(a[n], b[n]) for n in a
+                       if n.startswith(s + "/")) for s in vc.NETS}
+
+    by_training = subtree_moved(start, trained)
+    by_finetune = subtree_moved(trained, exported)
+    same_stats = all(np.array_equal(trained[n], exported[n])
+                     for n in trained if n.startswith("f0_stats/"))
+    print(f"[corpus-train] checkpoint at step {at}; moved by training "
+          f"{by_training}; moved by the fine-tune {by_finetune}; f0_stats "
+          f"kept {same_stats}")
+    if at != CORPUS_STEPS or not all(by_training.values()):
+        raise AssertionError("corpus training left a subtree unmoved")
+    if (by_finetune != {"stage1": False, "stage2": False, "vocoder": True,
+                        "vocoder_wave": True} or not same_stats):
+        raise AssertionError("the fine-tune moved other than both "
+                             "vocoders")
+    return launches
+
+
+def _distance(doc, ref, path="") -> list[str]:
+    """'path: value (QUALITY.json value, difference)' for every number
+    both documents hold."""
+    if isinstance(doc, dict):
+        return [line for k in doc if isinstance(ref, dict) and k in ref
+                for line in _distance(doc[k], ref[k], f"{path}/{k}")]
+    if isinstance(doc, (int, float)) and isinstance(ref, (int, float)) \
+            and not isinstance(doc, bool):
+        return [f"{path}: {doc:.4f} (QUALITY.json {ref:.4f}, "
+                f"{doc - ref:+.4f})"]
+    return []
+
+
+def quality_phase(root, dev) -> dict:
+    """Phase 17 (c): tools/torch_quality.py's recipe on the card, gated
+    with the JAX package's held-out gates.  Returns the launches."""
+    import pathlib
+    import torch
+    from realtime_yukarin_tpu_torch.ops import cuda
+
+    repo = pathlib.Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo / "tools"))
+    import torch_quality
+
+    cuda.reset_counts()
+    t0 = time.perf_counter()
+    doc = torch_quality.run_quality(
+        dev, QUALITY_STEPS, QUALITY_FINETUNE, pathlib.Path(root) / "quality",
+        log=lambda m: print(m.replace("[quality]", "[quality] recipe:")))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    print(json.dumps(doc))
+    ref = json.loads((repo / QUALITY_JSON).read_text())
+    for line in _distance(doc, ref):
+        print(f"[quality] {line}")
+    gates = torch_quality.quality_gates(doc)
+    for what, ok in gates:
+        print(f"[quality] {'ok  ' if ok else 'FAIL'} {what}")
+    print(f"[quality] recipe in {wall:.1f} s; launches {launches}")
+    failed = [w for w, ok in gates if not ok]
+    if failed:
+        raise AssertionError(f"quality gates failed: {failed}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the quality recipe launched no {missing}")
+    return launches
+
+
+def corpus_phase(cfg, dev) -> dict[str, dict]:
+    """Phase 17: (a) prepare, (b) train at full width, fine-tune and
+    export, (c) the quality recipe.  Returns each part's launches."""
+    import tempfile
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as root:
+        t0 = time.perf_counter()
+        out["prepare"], prep = prepare_phase(cfg, root, dev)
+        print(f"[prepare] phase seconds {time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        out["train"] = corpus_train_phase(cfg, prep, root, dev)
+        print(f"[corpus-train] phase seconds {time.perf_counter() - t0:.1f}")
+        t0 = time.perf_counter()
+        out["quality"] = quality_phase(root, dev)
+        print(f"[quality] phase seconds {time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1345,7 +1647,7 @@ def main() -> int:
                                  f"{e_fwd:.3e}, {e_bwd:.3e}")
     kname = "harmonic_bank_bwd"
     names = ("d_aL", "d_aR", "d_phi", "d_frac")
-    for R in (TRAIN_FRAMES, TRAIN_BATCH * TRAIN_FRAMES):
+    for R in (TRAIN_FRAMES, QUALITY_ROWS, TRAIN_BATCH * TRAIN_FRAMES):
         kern, plain, nbytes, nflops, plain64, amps_only = bwd_case(
             R, cfg, dev, rng)
         outs, refs, ref64 = kern(), plain(), plain64()
@@ -1532,11 +1834,16 @@ def main() -> int:
     print(f"[pipelined] phase seconds {time.perf_counter() - t0:.1f}")
     first_chunk_phase(cfg)
 
-    # 17. kernels line (launches: every path's run — the default stream,
+    # 17. the corpus training path and the quality recipe
+    corpus_launches = corpus_phase(cfg, dev)
+
+    # 18. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,
-    # the batched server), 18. result line
+    # the batched server, corpus preparation, corpus training and the
+    # quality recipe), 19. result line
     paths = [launches, train_launches, *offline_launches.values(),
-             *stream_launches.values(), batched_launches]
+             *stream_launches.values(), batched_launches,
+             *corpus_launches.values()]
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name],

@@ -23,6 +23,7 @@ from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.dsp.mcep import decode_mcep
 from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature
 from realtime_yukarin_tpu_torch.models.acoustic import AcousticNet, convert_mc
+from realtime_yukarin_tpu_torch.models.f0_stats import F0Statistics
 from realtime_yukarin_tpu_torch.models.initializers import init_module
 from realtime_yukarin_tpu_torch.models.super_resolution import (
     SRNet, refine_envelope)
@@ -347,8 +348,8 @@ def load_all_params(params: dict, cfg: Config,
             (cfg.input_statistics_path, "src_mean", "src_std"),
             (cfg.target_statistics_path, "tgt_mean", "tgt_std")):
         if path:
-            with np.load(path, allow_pickle=False) as d:
-                for k, name in ((mean_key, "mean"), (std_key, "std")):
-                    params["f0_stats"][k] = torch.tensor(
-                        float(d[name]), dtype=torch.float32, device=device)
+            stats = F0Statistics.load(path)
+            for k, v in ((mean_key, stats.mean), (std_key, stats.std)):
+                params["f0_stats"][k] = torch.tensor(
+                    v, dtype=torch.float32, device=device)
     return params

@@ -472,26 +472,42 @@ def test_cli_train_synthetic_writes_npz_jax_loads(setup, tmp_path, objective,
         np.testing.assert_array_equal(v, flat[k])
 
 
-@pytest.mark.parametrize("argv", [
-    ["--synthetic", "--prepared_dir", "corpus/"],
-    ["--synthetic", "--finetune_converted", "5"],
-    ["--synthetic", "--cache_utterances", "4"],
-    ["--synthetic", "--model_parallel", "2"],
-    ["--synthetic", "--coordinator_address", "host:1234"],
-    ["--synthetic", "--num_processes", "2"],
-    ["--synthetic", "--process_id", "0"],
-    ["--steps", "2"],
-    ["--synthetic", "--export_params", "p.msgpack"],
+@pytest.mark.parametrize("argv,names", [
+    (["--synthetic", "--finetune_converted", "5"], "--prepared_dir"),
+    (["--synthetic", "--model_parallel", "2"], "ROADMAP.md"),
+    (["--synthetic", "--coordinator_address", "host:1234"], "ROADMAP.md"),
+    (["--synthetic", "--num_processes", "2"], "ROADMAP.md"),
+    (["--synthetic", "--process_id", "0"], "ROADMAP.md"),
+    (["--steps", "2"], "--prepared_dir or --synthetic"),
+    (["--synthetic", "--export_params", "p.msgpack"], ".npz"),
 ])
-def test_cli_rejects_what_is_not_ported_right_after_parsing(argv, capsys,
+def test_cli_rejects_what_is_not_ported_right_after_parsing(argv, names,
+                                                            capsys,
                                                             monkeypatch):
     """Refused by the parser, before any model is built or a device
-    touched; the message names the ROADMAP item where one brings it."""
+    touched: the multi-GPU flags name the ROADMAP item that brings them,
+    a bad combination names what it lacks."""
     def no_init(*a, **k):
         raise AssertionError("reached the model set-up")
     monkeypatch.setattr(t_cli, "init_params", no_init)
     with pytest.raises(SystemExit) as exc:
         t_cli.main(argv)
     assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert ("ROADMAP.md" in err) != ("--export_params" in argv)
+    assert names in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--prepared_dir", "corpus/"],
+    ["--prepared_dir", "corpus/", "--cache_utterances", "4"],
+    ["--prepared_dir", "corpus/", "--finetune_converted", "5",
+     "--finetune_lr", "1e-3"],
+    ["--synthetic", "--cache_utterances", "4"],
+])
+def test_cli_accepts_the_corpus_flags_at_parse_time(argv):
+    """The corpus path's flags parse (the run itself is
+    tests/test_torch_full_chain.py's)."""
+    args = t_cli.parse_args(argv)
+    assert args.prepared_dir == ("corpus/" if "--prepared_dir" in argv
+                                 else None)
+    if "--finetune_lr" in argv:
+        assert (args.finetune_converted, args.finetune_lr) == (5, 1e-3)
