@@ -19,7 +19,11 @@ non-zero):
    R = 800 (the batch: what training's renders give the bank; a prepared
    3.3 s file's analysis) and R = 1280 (64 streams' rows), and the
    harmonic-bank backward at R = 100, 128 and 800 (all four outputs, and
-   the training step's launch for d_aL and d_aR only).  For each: the error against the
+   the training step's launch for d_aL and d_aR only); then, checked but
+   not profiled, the rows the other paths give a kernel (``path_rows``:
+   the quality recipe's prepared target file and output re-analysis, a
+   stream's start at the default and the recipe's Config, the recipe's
+   conditioning-gap render).  For each: the error against the
    plain version and both against a float64 evaluation of the plain
    version (per output for the backward); CUDA-event times of the kernel,
    the plain version and the library yardstick (mean of 200 back-to-back
@@ -89,7 +93,9 @@ non-zero):
    per step; (c) ``tools/torch_quality.py``'s recipe (tiny config, 600
    steps, the 300-step fine-tune) on the card: its JSON, each number's
    distance from ``QUALITY.json``, and the JAX package's held-out gates
-   (tests/test_full_chain.py);
+   (tests/test_full_chain.py); then each kernel's launches per shape over
+   (a)-(c), every one of them a shape phase 3 held against the plain
+   version;
 18. the kernels line: one JSON object with every kernel's numbers;
 19. last line: ``{"ok": true, "device": {...}}``.
 
@@ -128,14 +134,18 @@ REPLACES = {
     "harmonic_bank_bwd": "realtime_yukarin_tpu/ops/pallas_synth.py:101",
 }
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 100, 3
-# rows of one training batch of the quality recipe (8 x 16 frames)
+# rows of one training or fine-tune batch of the quality recipe (8 x 16
+# frames: training/full_chain.py's train_plain and
+# finetune_vocoder_on_converted)
 QUALITY_ROWS = 8 * 16
 # frames of one offline conversion of SECONDS at the default 24 kHz, hop 120
 OFFLINE_FRAMES = int(SECONDS * 24000) // 120
-# Forward kernels' row counts in phase 3: streaming step, one utterance of
-# a training batch (the analysis), the quality recipe's batch (the bank),
-# an offline conversion and a prepared 3 s file (all three), the batch (the
-# bank) and a prepared 3.3 s file (the analysis), 64 streams
+# Forward kernels' row counts in phase 3 (timed): a streaming step (all
+# three); one utterance of a training batch (the analysis); the quality
+# recipe's batch (the bank) and its prepared 0.6 s source file (the
+# analysis: 120 frames at bucket 32); an offline conversion and a prepared
+# 3 s file (all three); the batch (the bank) and a prepared 3.3 s file (the
+# analysis); 64 streams.  path_rows adds the rest, untimed.
 KERNEL_ROWS = (20, TRAIN_FRAMES, QUALITY_ROWS, OFFLINE_FRAMES,
                TRAIN_BATCH * TRAIN_FRAMES, 1280)
 # The analysis kernels also at ragged row counts (one row, one past a row
@@ -266,6 +276,57 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     t_ops = n_flops / PEAK_F32_FLOPS
     return (max(t_mem, t_ops) * 1e3,
             "bytes" if t_mem >= t_ops else "operations")
+
+
+def torch_quality():
+    """The quality tool's module (tools/torch_quality.py)."""
+    import pathlib
+    tools = str(pathlib.Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import torch_quality as tq
+    return tq
+
+
+def path_rows(cfg) -> tuple[list[int], list[int]]:
+    """Row counts the paths give the kernels besides KERNEL_ROWS, from
+    their own constants: (analysis rows, bank rows).
+
+    The analysis: the quality recipe's prepared target file (0.66 s at
+    bucket 32: 132 frames -> 160 rows), its full-chain output re-analysed
+    at the held-out source's length (0.6 s: 120), and a stream's start
+    (the analysis of its cache frames of silence) in each vocoder mode at
+    the default and the recipe's Config.  The bank: the recipe's
+    conditioning gap, which renders a whole target file (132 rows)."""
+    from realtime_yukarin_tpu_torch.streaming.state import StreamGeometry
+    from realtime_yukarin_tpu_torch.training.corpus import frame_bucket
+    from realtime_yukarin_tpu_torch.training.data import (FORMANT_BUCKET,
+                                                          FORMANT_SECONDS)
+
+    qcfg = torch_quality().quality_config()
+    src_f, tgt_f = (int(s * qcfg.dsp.sample_rate) // qcfg.dsp.hop
+                    for s in FORMANT_SECONDS)
+    analysis = {frame_bucket(F, FORMANT_BUCKET) for F in (src_f, tgt_f)}
+    analysis.add(src_f)
+    analysis |= {StreamGeometry.from_config(c, True, vocoder_mode=m)
+                 .cache_frames for c in (cfg, qcfg) for m in VOCODER_MODES}
+    bank = {tgt_f}
+    return ([R for R in sorted(analysis) if R not in KERNEL_ROWS],
+            [R for R in sorted(bank) if R not in KERNEL_ROWS])
+
+
+def launch_shape(name: str, args: tuple) -> tuple:
+    """The shape a kernel's launcher arguments give it (ops/analysis.py,
+    ops/harmonic_bank.py): (R, K) for the analysis kernels, (R, H, hop)
+    for the bank, (R, H, hop, whether d_phi and d_frac are computed) for
+    its backward."""
+    if name == "power_spectrum":
+        return int(args[3]), int(args[5])
+    if name == "envelope_cepstrum":
+        return int(args[4]), int(args[5])
+    if name == "harmonic_bank":
+        return tuple(int(a) for a in args[5:8])
+    return tuple(int(a) for a in args[9:12]) + (args[7] is not None,)
 
 
 def kernel_phase(kname: str, R: int, n: int, case: Case,
@@ -848,26 +909,22 @@ def lane_signals(n: int, steps: int, fs: int, S: int) -> np.ndarray:
     return x
 
 
-def record_rows() -> tuple[dict, Callable[[], None]]:
-    """Wrap each forward kernel's launch to record the row count it was
-    given (the launch still counts once); returns ({name: [R, ...]}, undo).
-    R is the fourth argument of the power spectrum's launcher, the fifth
-    of the envelope cepstrum's and the sixth of the bank's."""
+def record_shapes() -> tuple[dict, Callable[[], None]]:
+    """Wrap each kernel's launch to record the shape it was given
+    (``launch_shape``; the launch still counts once); returns
+    ({name: [shape, ...]}, undo)."""
     from realtime_yukarin_tpu_torch.ops import cuda
-    where = {"power_spectrum": 3, "envelope_cepstrum": 4,
-             "harmonic_bank": 5}
-    rows = {k: [] for k in where}
-    kernels = {k.name: k for k in cuda.KERNELS if k.name in where}
-    for name, k in kernels.items():
-        def launch(*args, _k=k, _name=name):
-            rows[_name].append(int(args[where[_name]]))
+    shapes = {k.name: [] for k in cuda.KERNELS}
+    for k in cuda.KERNELS:
+        def launch(*args, _k=k):
+            shapes[_k.name].append(launch_shape(_k.name, args))
             type(_k).launch(_k, *args)
         k.launch = launch
 
     def undo():
-        for k in kernels.values():
+        for k in cuda.KERNELS:
             del k.launch
-    return rows, undo
+    return shapes, undo
 
 
 def single_run(params, cfg, key, chunks: np.ndarray):
@@ -912,7 +969,7 @@ def batched_phase(cfg) -> dict:
     held = [i for i in BATCH_HELD if i not in (PAUSED_LANE, RESET_LANE)]
     outs, voicing = [], []
     cuda.reset_counts()
-    rows, undo = record_rows()
+    shapes, undo = record_shapes()
     try:
         for k in range(steps):
             live = np.ones(N, bool)
@@ -931,6 +988,7 @@ def batched_phase(cfg) -> dict:
     finally:
         undo()
     launches = launch_counts()
+    rows = {k: [s[0] for s in shapes[k]] for k in FORWARD_KERNELS}
     out = np.stack(outs)                                     # [steps, N, So]
     paused = out[PAUSE_STEPS[0]: PAUSE_STEPS[1] + 1, PAUSED_LANE]
     R = 20 * N
@@ -1525,12 +1583,11 @@ def quality_phase(root, dev) -> dict:
     from realtime_yukarin_tpu_torch.ops import cuda
 
     repo = pathlib.Path(__file__).resolve().parent
-    sys.path.insert(0, str(repo / "tools"))
-    import torch_quality
+    tq = torch_quality()
 
     cuda.reset_counts()
     t0 = time.perf_counter()
-    doc = torch_quality.run_quality(
+    doc = tq.run_quality(
         dev, QUALITY_STEPS, QUALITY_FINETUNE, pathlib.Path(root) / "quality",
         log=lambda m: print(m.replace("[quality]", "[quality] recipe:")))
     sync(dev)
@@ -1540,7 +1597,7 @@ def quality_phase(root, dev) -> dict:
     ref = json.loads((repo / QUALITY_JSON).read_text())
     for line in _distance(doc, ref):
         print(f"[quality] {line}")
-    gates = torch_quality.quality_gates(doc)
+    gates = tq.quality_gates(doc)
     for what, ok in gates:
         print(f"[quality] {'ok  ' if ok else 'FAIL'} {what}")
     print(f"[quality] recipe in {wall:.1f} s; launches {launches}")
@@ -1553,21 +1610,42 @@ def quality_phase(root, dev) -> dict:
     return launches
 
 
-def corpus_phase(cfg, dev) -> dict[str, dict]:
+def corpus_phase(cfg, dev, checked: dict[str, set]) -> dict[str, dict]:
     """Phase 17: (a) prepare, (b) train at full width, fine-tune and
-    export, (c) the quality recipe.  Returns each part's launches."""
+    export, (c) the quality recipe.  Every shape the phase gives a kernel
+    must be one that phase 3 held against the plain version (``checked``).
+    Returns each part's launches."""
+    import collections
     import tempfile
     out = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as root:
-        t0 = time.perf_counter()
-        out["prepare"], prep = prepare_phase(cfg, root, dev)
-        print(f"[prepare] phase seconds {time.perf_counter() - t0:.1f}")
-        t0 = time.perf_counter()
-        out["train"] = corpus_train_phase(cfg, prep, root, dev)
-        print(f"[corpus-train] phase seconds {time.perf_counter() - t0:.1f}")
-        t0 = time.perf_counter()
-        out["quality"] = quality_phase(root, dev)
-        print(f"[quality] phase seconds {time.perf_counter() - t0:.1f}")
+    shapes, undo = record_shapes()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as root:
+            t0 = time.perf_counter()
+            out["prepare"], prep = prepare_phase(cfg, root, dev)
+            print(f"[prepare] phase seconds {time.perf_counter() - t0:.1f}")
+            t0 = time.perf_counter()
+            out["train"] = corpus_train_phase(cfg, prep, root, dev)
+            print(f"[corpus-train] phase seconds "
+                  f"{time.perf_counter() - t0:.1f}")
+            t0 = time.perf_counter()
+            out["quality"] = quality_phase(root, dev)
+            print(f"[quality] phase seconds {time.perf_counter() - t0:.1f}")
+    finally:
+        undo()
+    unchecked = {}
+    for name, seen in shapes.items():
+        count = collections.Counter(seen)
+        print(f"[corpus] {name}: launches per shape "
+              + ", ".join(f"{s}: {n}" for s, n in sorted(count.items())))
+        if set(count) - checked[name]:
+            unchecked[name] = sorted(set(count) - checked[name])
+    if unchecked:
+        raise AssertionError(f"phase 17 gave kernels shapes that phase 3 "
+                             f"did not hold against the plain versions: "
+                             f"{unchecked}")
+    print("[corpus] every shape of phase 17 was held against the plain "
+          "version in phase 3")
     return out
 
 
@@ -1624,18 +1702,27 @@ def main() -> int:
           f"launch (in-place add on a one-element tensor)")
     record = {}
     offline_rec = {}
+    # the shapes held against the plain versions (launch_shape's)
+    checked = {k.name: set() for k in cuda.KERNELS}
+    n_fft, H_d, hop_d = cfg.dsp.fft_size, cfg.dsp.num_harmonics, cfg.dsp.hop
+    K_d = n_fft // 2 + 1
     for R in KERNEL_ROWS:
         for kname, case in kernel_cases(R, cfg, dev, rng).items():
-            rec = kernel_phase(kname, R, cfg.dsp.fft_size, case)
+            rec = kernel_phase(kname, R, n_fft, case)
+            checked[kname].add((R, H_d, hop_d) if kname == "harmonic_bank"
+                               else (R, K_d))
             if R == 20:
                 record[kname] = rec
             if R == OFFLINE_FRAMES:
                 offline_rec[kname] = rec
-    for n, R in RAGGED_CASES:
+    analysis_rows, bank_rows = path_rows(cfg)
+    for n, R in RAGGED_CASES + tuple((n_fft, R) for R in analysis_rows):
         cases = kernel_cases(R, cfg, dev, rng, n=n)
         for kname in ANALYSIS_KERNELS:
             kernel_phase(kname, R, n, cases[kname], timed=False)
-    for R, H, hop in BANK_RAGGED_CASES:
+            checked[kname].add((R, n // 2 + 1))
+    for R, H, hop in BANK_RAGGED_CASES + tuple((R, H_d, hop_d)
+                                              for R in bank_rows):
         e_fwd, e_bwd = bank_ragged(R, H, hop, dev, rng)
         torch.cuda.synchronize()
         ok = (e_fwd <= TOL["harmonic_bank"]
@@ -1645,6 +1732,10 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"bank at R={R} H={H} hop={hop}: errors "
                                  f"{e_fwd:.3e}, {e_bwd:.3e}")
+        checked["harmonic_bank"].add((R, H, hop))
+        checked["harmonic_bank_bwd"].add((R, H, hop, True))
+    print(f"[kernel] the paths' other rows (path_rows), checked: analysis "
+          f"{analysis_rows}, bank {bank_rows}")
     kname = "harmonic_bank_bwd"
     names = ("d_aL", "d_aR", "d_phi", "d_frac")
     for R in (TRAIN_FRAMES, QUALITY_ROWS, TRAIN_BATCH * TRAIN_FRAMES):
@@ -1677,6 +1768,7 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"{kname} R={R}: error {err:.3e} above "
                                  f"{TOL[kname]:g}")
+        checked[kname].add((R, H_d, hop_d, True))
         # the launch a training step makes: d_aL and d_aR only (autograd
         # asks for no phase or frac gradient), held against the same plain
         # outputs and bound by its own operations and bytes (2 FMAs and a
@@ -1688,9 +1780,8 @@ def main() -> int:
         torch.cuda.synchronize()
         a_ok = max(a_errs) <= TOL[kname]
         amps_ms = device_ms(amps_only)
-        H, hop = cfg.dsp.num_harmonics, cfg.dsp.hop
-        a_ms, a_by = bound_ms(4 * (4 * R * H + 2 * R * hop + hop),
-                              6.0 * R * hop * H)
+        a_ms, a_by = bound_ms(4 * (4 * R * H_d + 2 * R * hop_d + hop_d),
+                              6.0 * R * hop_d * H_d)
         print(f"[kernel] {kname} R={R} d_aL and d_aR only (the training "
               f"step's launch): /peak "
               + " ".join(f"{nm} {e:.3e}" for nm, e in zip(names, a_errs))
@@ -1704,6 +1795,7 @@ def main() -> int:
         if not a_ok:
             raise AssertionError(f"{kname} R={R} d_aL and d_aR only: error "
                                  f"{max(a_errs):.3e} above {TOL[kname]:g}")
+        checked[kname].add((R, H_d, hop_d, False))
         record[kname] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              device_ms=dev_ms, plain_device_ms=plain_dev,
@@ -1835,7 +1927,7 @@ def main() -> int:
     first_chunk_phase(cfg)
 
     # 17. the corpus training path and the quality recipe
-    corpus_launches = corpus_phase(cfg, dev)
+    corpus_launches = corpus_phase(cfg, dev, checked)
 
     # 18. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,

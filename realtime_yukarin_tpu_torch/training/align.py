@@ -8,12 +8,14 @@ preparation (PyTorch port of ``training/align.py``).
   float32 on the card.
 * The DP uses the step set {(1,0), (1,1), (1,2)}: every source frame
   advances one row and the target index 0, 1 or 2 columns, so each row
-  depends only on the row before.  The loop runs over rows on the
-  features' device, each row vectorised (and batched over any leading
-  dims).  Ties take the fewest columns back, as ``jnp.argmin`` takes the
-  first index.
-* The backtrack walks the stored per-row choices on the host after one
-  copy: this is corpus preparation, not the serving path.
+  depends only on the row before.  The cost matrix is copied to the host
+  once and the loop runs there over rows, each row vectorised (and
+  batched over any leading dims): on the card each row would be a handful
+  of tiny launches, and this is corpus preparation, not the serving path.
+  A CUDA and a CPU preparation then run the same DP on the host, and only
+  their cost matrices differ.  Ties take the fewest columns back, as
+  ``jnp.argmin`` takes the first index.
+* The backtrack walks the per-row choices on the host.
 """
 
 from __future__ import annotations
@@ -80,15 +82,12 @@ def dtw_path(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     int64 on x's device.
 
     x: [..., Fx, M] source features; y: [..., Fy, M] target features.
-    Leading dims are a batch of equal-length pairs (the JAX package's
-    ``batched_dtw_path``)."""
+    Leading dims are a batch of equal-length pairs (what the JAX package's
+    ``batched_dtw_path`` computes)."""
     C = cost_matrix(x, y)
-    choices = dtw_choices(C).cpu().numpy()
+    choices = dtw_choices(C.cpu()).numpy()
     idx = backtrack(choices, C.shape[-1])
     return torch.from_numpy(idx).to(x.device)
-
-
-batched_dtw_path = dtw_path
 
 
 def path_cost(C: np.ndarray, idx: np.ndarray) -> float:

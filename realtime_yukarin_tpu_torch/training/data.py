@@ -102,6 +102,11 @@ SRC_SPEAKER = dict(f0_base=140.0, formant_scale=1.0, tilt=0.1)
 TGT_SPEAKER = dict(f0_base=200.0, formant_scale=0.8, tilt=0.5,
                    inharmonic=0.08)
 
+# build_formant_corpus: source / target seconds of every pair, and the
+# bucket its corpus is prepared at
+FORMANT_SECONDS = (0.6, 0.66)
+FORMANT_BUCKET = 32
+
 
 def build_formant_corpus(root, cfg: Config, n_train: int = 6,
                          seed: int = 3, heldout_seed: int = 100,
@@ -127,21 +132,23 @@ def build_formant_corpus(root, cfg: Config, n_train: int = 6,
         d.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     fs = cfg.dsp.sample_rate
+    s_src, s_tgt = FORMANT_SECONDS
     for k in range(n_train):
         write_wav(str(dirs["src"] / f"utt{k}.wav"),
-                  formant_utterance(k, rng, 0.6, fs, **SRC_SPEAKER), fs)
+                  formant_utterance(k, rng, s_src, fs, **SRC_SPEAKER), fs)
         write_wav(str(dirs["tgt"] / f"utt{k}.wav"),
-                  formant_utterance(k, rng, 0.66, fs, **TGT_SPEAKER), fs)
+                  formant_utterance(k, rng, s_tgt, fs, **TGT_SPEAKER), fs)
     write_wav(str(dirs["ev_src"] / "ho.wav"),
-              formant_utterance(heldout_seed, rng, 0.6, fs, **SRC_SPEAKER),
+              formant_utterance(heldout_seed, rng, s_src, fs, **SRC_SPEAKER),
               fs)
     write_wav(str(dirs["ev_tgt"] / "ho.wav"),
-              formant_utterance(heldout_seed, rng, 0.66, fs, **TGT_SPEAKER),
+              formant_utterance(heldout_seed, rng, s_tgt, fs, **TGT_SPEAKER),
               fs)
     for src, tgt, prep in (("src", "tgt", "prep_tr"),
                            ("ev_src", "ev_tgt", "prep_ev")):
         prepare_corpus(str(dirs[src]), str(dirs[tgt]), str(dirs[prep]),
-                       cfg, bucket_frames=32, verbose=verbose, device=device)
+                       cfg, bucket_frames=FORMANT_BUCKET, verbose=verbose,
+                       device=device)
     return dirs
 
 

@@ -5,8 +5,11 @@ statistics, DTW alignment, the formant corpus, ``prepare_corpus``,
 A 2-pair 0.6 s formant corpus (plus the held-out pair) is built and
 prepared by each package at ``bucket_frames=32`` with the tiny config,
 in float32; the module builds its own corpora (conftest's
-``trained_formant`` would train 600 JAX steps on this worker).  A CPU
-tensor never launches a kernel."""
+``trained_formant`` would train 600 JAX steps on this worker), the port's
+shared with tests/test_torch_full_chain.py when both run in one process.
+The JAX package's eager analysis runs under ``jax.jit``
+(``torch_parity.jax_references_jitted``).  A CPU tensor never launches a
+kernel."""
 
 import json
 import pathlib
@@ -38,7 +41,7 @@ from realtime_yukarin_tpu_torch.training import dataset as t_dataset
 from realtime_yukarin_tpu_torch.training import evaluate as t_evaluate
 from realtime_yukarin_tpu_torch.training import full_chain as t_fc
 
-from torch_parity import configs, t32
+from torch_parity import configs, jax_jitted, port_formant_corpus, t32
 
 FEATURES = ("f0", "mc", "ap", "env")
 
@@ -51,12 +54,11 @@ def _zero_counts():
 
 
 @pytest.fixture(scope="module")
-def corpora(tmp_path_factory):
+def corpora(tmp_path_factory, jax_jitted):
     jc, tc = configs()
-    root = tmp_path_factory.mktemp("torch_corpus")
-    jdirs = j_data.build_formant_corpus(root / "jax", jc, n_train=2)
-    tdirs = t_data.build_formant_corpus(root / "torch", tc, n_train=2,
-                                        device="cpu")
+    jdirs = j_data.build_formant_corpus(
+        tmp_path_factory.mktemp("torch_corpus_jax"), jc, n_train=2)
+    tdirs = port_formant_corpus(tmp_path_factory, tc)
     return jc, tc, jdirs, tdirs
 
 
@@ -177,7 +179,7 @@ def test_batched_dtw_and_align_pair_match_jax(corpora):
     x = rng.standard_normal((3, 25, 6)).astype(np.float32)
     y = rng.standard_normal((3, 32, 6)).astype(np.float32)
     jb = np.asarray(j_align.batched_dtw_path(jnp.asarray(x), jnp.asarray(y)))
-    tb = t_align.batched_dtw_path(t32(x), t32(y)).numpy()
+    tb = t_align.dtw_path(t32(x), t32(y)).numpy()
     np.testing.assert_array_equal(tb, jb)
     for b in range(3):
         np.testing.assert_array_equal(

@@ -5,7 +5,10 @@ fine-tune against the JAX package's on the CPU, and the corpus CLI chain
 Every comparison starts from the same perturbed tiny init
 (``torch_parity.perturbed_params`` on every network subtree, the wave
 decoder shrunk as in ``training_configs``; float32) on the same held-out
-pair of a 2-pair formant corpus prepared by the port.  A CPU tensor never
+pair of a 2-pair formant corpus prepared by the port (shared with
+tests/test_torch_corpus.py when both run in one process).  The JAX
+package's eager analysis, conversion, vocoding and STFT loss run under
+``jax.jit`` (``torch_parity.jax_references_jitted``).  A CPU tensor never
 launches a kernel."""
 
 import numpy as np
@@ -21,12 +24,12 @@ from realtime_yukarin_tpu_torch.cli import prepare as t_prepare_cli
 from realtime_yukarin_tpu_torch.cli import train as t_train_cli
 from realtime_yukarin_tpu_torch.models import voice_changer as t_vc
 from realtime_yukarin_tpu_torch.ops import cuda
-from realtime_yukarin_tpu_torch.training import data as t_data
 from realtime_yukarin_tpu_torch.training import full_chain as t_fc
 from realtime_yukarin_tpu_torch.training import train_step as t_ts
 from realtime_yukarin_tpu_torch.utils.audio_io import read_wav
 
-from torch_parity import ALL_NETS, perturbed_params, training_configs
+from torch_parity import (ALL_NETS, jax_jitted, perturbed_params,
+                          port_formant_corpus, training_configs)
 
 MODES = ("dsp", "ddsp", "wave")
 FT_CROP, FT_BATCH = 16, 2      # crop 16: the JAX recipe's
@@ -54,25 +57,31 @@ def _load(path) -> dict:
 
 
 @pytest.fixture(scope="module")
-def setup(tmp_path_factory):
+def setup(tmp_path_factory, jax_jitted):
     jc, tc = training_configs()
     jp, tp, _ = perturbed_params(jc, tc, prefixes=ALL_NETS)
-    root = tmp_path_factory.mktemp("torch_full_chain")
-    dirs = t_data.build_formant_corpus(root, tc, n_train=2, device="cpu")
+    dirs = port_formant_corpus(tmp_path_factory, tc)
     ho = _load(dirs["prep_ev"] / "ho.npz")
     src_wave, _ = read_wav(str(dirs["ev_src"] / "ho.wav"),
                            target_rate=tc.dsp.sample_rate)
     return jc, tc, jp, tp, dirs, ho, src_wave
 
 
+@pytest.fixture(scope="module")
+def jax_metrics(setup):
+    """JAX's full-chain metrics in every mode, in one call."""
+    jc, _, jp, _, _, ho, src_wave = setup
+    return j_fc.full_chain_metrics(jp, jc, src_wave, ho, modes=MODES)
+
+
 @pytest.mark.parametrize("mode", MODES)
-def test_full_chain_metrics_match_jax(mode, setup):
+def test_full_chain_metrics_match_jax(mode, setup, jax_metrics):
     """The held-out source through each package's streamed pipeline,
     re-analysed and scored.  Measured on this fixture: MCD apart by
     <= 9.6e-6 dB, log-F0 RMSE by <= 2.1e-7, V/UV identical; gated at
     0.05 dB, 0.01 and exact."""
-    jc, tc, jp, tp, _, ho, src_wave = setup
-    jm = j_fc.full_chain_metrics(jp, jc, src_wave, ho, modes=(mode,))[mode]
+    _, tc, _, tp, _, ho, src_wave = setup
+    jm = jax_metrics[mode]
     tm = t_fc.full_chain_metrics(tp, tc, src_wave, ho, modes=(mode,),
                                  device="cpu")[mode]
     assert list(tm) == list(jm)
@@ -190,6 +199,35 @@ def _port_flat(tp: dict, grads: dict) -> dict:
     return t_vc.params_to_jax(tree)
 
 
+@pytest.fixture(scope="module")
+def jax_finetuned(setup, pairs):
+    """JAX's two fine-tune steps on its converted pairs: (the tree after
+    them, flattened; the gradient each step gave its optimizer, flattened
+    and read back from inside its jitted step)."""
+    import optax
+    jc, _, jp, _, _, _, _ = setup
+    chain, grads = optax.chain, []
+
+    def recording_chain(*transforms):
+        inner = chain(*transforms)
+
+        def update(g, state, params=None):
+            jax.debug.callback(lambda g: grads.append(
+                jax.tree.map(np.asarray, g)), g)
+            return inner.update(g, state, params)
+
+        return optax.GradientTransformation(inner.init, update)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(optax, "chain", recording_chain)
+        tree = j_fc.finetune_vocoder_on_converted(
+            jp, jc, pairs[0], steps=2, crop_frames=FT_CROP,
+            batch_size=FT_BATCH, seed=0)
+    assert len(grads) == 2
+    return (j_vc.flatten_params(jax.tree.map(np.asarray, tree)),
+            [j_vc.flatten_params(dict(jp, **g)) for g in grads])
+
+
 def test_finetune_loss_and_gradients_match_jax(setup, pairs):
     """The fine-tune objective and its gradient on one batch: the loss
     within 1e-5 relative, every vocoder subtree's gradient within 2e-3 of
@@ -264,23 +302,75 @@ def _port_flat_inverse(tp: dict, g: dict) -> list[torch.Tensor]:
     return out
 
 
-def test_finetune_vocoder_matches_jax(setup, pairs):
+def test_finetune_vocoder_on_jax_gradients_matches_jax(
+        setup, pairs, jax_finetuned, monkeypatch):
+    """The port's fine-tune loop (its batch draws, leaf order, global-norm
+    clip and Adam) given, at each step, the gradient JAX's own jitted
+    step gave its optimizer: after two steps every vocoder leaf lies
+    within 1e-5 of JAX's update's peak, plus 2 ulps of the stored
+    parameter per step, and the other subtrees are bit-equal.  With the
+    gradient comparison above, this places the end-to-end difference
+    (test_finetune_vocoder_matches_jax) in the gradients alone."""
+    _, tc, _, tp, _, _, _ = setup
+    jpairs, _ = pairs
+    want, jgrads = jax_finetuned
+    rng = np.random.default_rng(0)
+    drawn = []
+
+    def loss(voc, batch, cfg):
+        drawn.append(batch)
+        return None
+
+    def gradients(_loss, voc):
+        # the batch the loop drew is JAX's draw for this step
+        for a, b in zip(drawn[-1], _jax_draw(jpairs, rng, tc.dsp.hop,
+                                              t_fc.noise_bins(tc), FT_CROP,
+                                              FT_BATCH)):
+            np.testing.assert_array_equal(a.numpy(), b)
+        g = jgrads[len(drawn) - 1]
+        leaves = _port_flat_inverse(tp, {n: v for n, v in g.items()
+                                         if n.startswith(t_fc.VOCODERS)})
+        out, at = {}, 0
+        for k in t_fc.VOCODERS:
+            n = len(list(voc[k].parameters()))
+            out[k] = leaves[at: at + n]
+            at += n
+        return out
+
+    monkeypatch.setattr(t_fc, "finetune_loss", loss)
+    monkeypatch.setattr(t_fc, "gradients", gradients)
+    t_ft = t_fc.finetune_vocoder_on_converted(
+        tp, tc, jpairs, steps=2, crop_frames=FT_CROP, batch_size=FT_BATCH,
+        seed=0, device="cpu")
+    assert len(drawn) == 2
+    before = t_vc.params_to_jax(tp)
+    after = t_vc.params_to_jax(t_ft)
+    for n in before:
+        if not n.startswith(t_fc.VOCODERS):
+            np.testing.assert_array_equal(after[n], before[n], err_msg=n)
+            continue
+        moved = np.abs(want[n] - before[n]).max()
+        ulp = np.spacing(np.abs(want[n]))
+        assert moved > 0, n
+        assert (np.abs(after[n] - want[n]) <= 1e-5 * moved + 2 * ulp).all(), n
+
+
+def test_finetune_vocoder_matches_jax(setup, pairs, jax_finetuned):
     """Two fine-tune steps from the same tree on the same (JAX) pairs,
     end to end: stage1, stage2 and f0_stats stay bit for bit, and each
     vocoder subtree's update lies within 10% of JAX's in L2 (measured
     2.9% and 4.3%).  Elementwise agreement is not attainable end to end:
-    the gradients agree to ~1e-3 of their peak (the test above), and
-    Adam's normalised step turns that into a different step wherever an
-    element's gradient is that small; the optimizer alone agrees to 1e-5
-    of the update (test_finetune_optimizer_matches_optax)."""
-    jc, tc, jp, tp, _, _, _ = setup
+    the gradients agree to ~1e-3 of their peak
+    (test_finetune_loss_and_gradients_match_jax), and Adam's normalised
+    step turns that into a different step wherever an element's gradient
+    is that small.  Fed JAX's gradients, the same loop agrees to 1e-5 of
+    the update (test_finetune_vocoder_on_jax_gradients_matches_jax)."""
+    _, tc, _, tp, _, _, _ = setup
     jpairs, _ = pairs
-    kw = dict(steps=2, crop_frames=FT_CROP, batch_size=FT_BATCH, seed=0)
-    j_ft = j_vc.flatten_params(jax.tree.map(
-        np.asarray, j_fc.finetune_vocoder_on_converted(jp, jc, jpairs,
-                                                       **kw)))
-    t_ft = t_fc.finetune_vocoder_on_converted(tp, tc, jpairs, device="cpu",
-                                              **kw)
+    j_ft, _ = jax_finetuned
+    t_ft = t_fc.finetune_vocoder_on_converted(
+        tp, tc, jpairs, steps=2, crop_frames=FT_CROP, batch_size=FT_BATCH,
+        seed=0, device="cpu")
     before = t_vc.params_to_jax(tp)
     after = t_vc.params_to_jax(t_ft)
     for k, v in _leaf_sets(before, ("stage1/", "stage2/",
