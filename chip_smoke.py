@@ -17,8 +17,10 @@ non-zero):
    8 x 16 frames: the bank), R = 600 (an offline conversion of 3 s, a
    prepared 3 s file: what its analysis and render give all three),
    R = 800 (the batch: what training's renders give the bank; a prepared
-   3.3 s file's analysis) and R = 1280 (64 streams' rows), and the
-   harmonic-bank backward at R = 100, 128 and 800 (all four outputs, and
+   3.3 s file's analysis), R = 640 (a rank's 32 lanes in phase 18) and
+   R = 1280 (64 streams' rows), and the harmonic-bank backward at R = 100,
+   128, 800 and 1600 (phase 18's whole batch on each rank of a model
+   split) (all four outputs, and
    the training step's launch for d_aL and d_aR only); then, checked but
    not profiled, the rows the other paths give a kernel (``path_rows``:
    the quality recipe's prepared target file and output re-analysis, a
@@ -96,8 +98,26 @@ non-zero):
    (tests/test_full_chain.py); then each kernel's launches per shape over
    (a)-(c), every one of them a shape phase 3 held against the plain
    version;
-18. the kernels line: one JSON object with every kernel's numbers;
-19. last line: ``{"ok": true, "device": {...}}``.
+18. two ranks on this card over ``torch.distributed`` (workers: this
+   script run with ``--multihost-worker``, each writing its numbers,
+   arrays and kernel launch shapes to a file the parent reads): (a) the
+   64 lanes of phase 12 over two gloo ranks (32 each, R = 640 rows per
+   launch) through ``step_local``, each rank's rows against phase 12's
+   one process (its tolerance, identical voicing; whether bit-equal is
+   printed), the same over one NCCL rank (a group of one, with the
+   layout's collectives run on it), then bf16 per-rank p50 / p99 step
+   time with both ranks stepping, aggregate x realtime, launches per step
+   and idle share; (b) 2 joint steps at model_parallel 1 (8 x 100 frames
+   per rank) and 2 with the weights split over both ranks (each with the
+   whole 16 x 100 batch), against one process on the whole batch: losses
+   (phase 7's tolerance), first gradients (PARITY_GRAD_TOL; the wave
+   decoder leaf by leaf at the run's own cotangent), kernels 1 and 4 in
+   every step; (c) one socket client per rank, bit-equal to one process
+   serving it on the same global slot (a server laid out at that rank's
+   slots, so its steps have the rank's width); every shape the ranks gave a
+   kernel must be one phase 3 held;
+19. the kernels line: one JSON object with every kernel's numbers;
+20. last line: ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when CUDA is not available or the port's
 package is missing.  Imports nothing of JAX.
@@ -108,6 +128,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -145,9 +166,10 @@ OFFLINE_FRAMES = int(SECONDS * 24000) // 120
 # recipe's batch (the bank) and its prepared 0.6 s source file (the
 # analysis: 120 frames at bucket 32); an offline conversion and a prepared
 # 3 s file (all three); the batch (the bank) and a prepared 3.3 s file (the
-# analysis); 64 streams.  path_rows adds the rest, untimed.
+# analysis); a rank's 32 of 64 streams (phase 18); 64 streams.  path_rows
+# adds the rest, untimed.
 KERNEL_ROWS = (20, TRAIN_FRAMES, QUALITY_ROWS, OFFLINE_FRAMES,
-               TRAIN_BATCH * TRAIN_FRAMES, 1280)
+               TRAIN_BATCH * TRAIN_FRAMES, 640, 1280)
 # The analysis kernels also at ragged row counts (one row, one past a row
 # group, one past 64 streams) and at fft_size 1024 (K = 513, the COMPAT
 # configuration), checked but not profiled
@@ -208,6 +230,21 @@ LANE_STEPS = max(BATCH_STEPS, SERVE_WARMUP + SERVE_STEPS + PROFILE_STEPS)
 SOCKET_STREAMS, SOCKET_CLIENTS, SOCKET_SECONDS = 8, 3, 2.0
 # Phase 15: the pipelined soak (one simulated minute)
 SOAK_CHUNKS = 600
+# Phase 18: two ranks on this card over gloo (their workers are this script
+# run with MH_FLAG).  Serving: BATCH_STREAMS lanes, half on each rank
+# (R = 20 * 32 = 640 rows per kernel launch), phase 12's schedule and
+# tolerance.  Training: TRAIN_BATCH x TRAIN_FRAMES rows per rank, each
+# half of the one-process batch, MH_TRAIN_STEPS steps at model_parallel 1,
+# then as many with the weights split over both ranks, each holding the
+# whole batch.  The socket: MH_SOCKET_STREAMS slots, one client per rank.
+MH_FLAG = "--multihost-worker"
+MH_RANKS, MH_TRAIN_STEPS = 2, 2
+MH_ROWS = 20 * BATCH_STREAMS // MH_RANKS
+MH_TRAIN_ROWS = MH_RANKS * TRAIN_BATCH * TRAIN_FRAMES
+MH_SOCKET_STREAMS, MH_SOCKET_SECONDS = 8, 1.0
+MH_SOCKET_ROWS = 20 * MH_SOCKET_STREAMS // MH_RANKS
+MH_TIMEOUT_S = 300          # one worker run, start-up included
+MH_GROUP_TIMEOUT_S = 120    # a collective that waits longer raises
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -296,8 +333,11 @@ def path_rows(cfg) -> tuple[list[int], list[int]]:
     bucket 32: 132 frames -> 160 rows), its full-chain output re-analysed
     at the held-out source's length (0.6 s: 120), and a stream's start
     (the analysis of its cache frames of silence) in each vocoder mode at
-    the default and the recipe's Config.  The bank: the recipe's
-    conditioning gap, which renders a whole target file (132 rows)."""
+    the default and the recipe's Config; a rank's lanes in phase 18
+    (MH_ROWS) and its socket slots (MH_SOCKET_ROWS).  The bank: the
+    recipe's conditioning gap, which renders a whole target file (132
+    rows); the same two phase 18 widths and the batch a model split gives
+    each rank there (MH_TRAIN_ROWS)."""
     from realtime_yukarin_tpu_torch.streaming.state import StreamGeometry
     from realtime_yukarin_tpu_torch.training.corpus import frame_bucket
     from realtime_yukarin_tpu_torch.training.data import (FORMANT_BUCKET,
@@ -310,7 +350,8 @@ def path_rows(cfg) -> tuple[list[int], list[int]]:
     analysis.add(src_f)
     analysis |= {StreamGeometry.from_config(c, True, vocoder_mode=m)
                  .cache_frames for c in (cfg, qcfg) for m in VOCODER_MODES}
-    bank = {tgt_f}
+    analysis |= {MH_ROWS, MH_SOCKET_ROWS}
+    bank = {tgt_f, MH_ROWS, MH_SOCKET_ROWS, MH_TRAIN_ROWS}
     return ([R for R in sorted(analysis) if R not in KERNEL_ROWS],
             [R for R in sorted(bank) if R not in KERNEL_ROWS])
 
@@ -628,16 +669,18 @@ def train_phase(cfg, dev) -> dict:
     return {"walls": walls, "steps": 2 * TRAIN_STEPS}
 
 
-def wave_render(net, batch, cfg):
+def wave_render(net, batch, cfg, mesh=None):
     """(the wave decoder's render of ``batch``, the training step's term
-    that reads it: 0.5 * multi_resolution_stft against the real wave)."""
+    that reads it: 0.5 * multi_resolution_stft against the real wave, over
+    the global batch when ``mesh`` splits it)."""
     from realtime_yukarin_tpu_torch.models.vocoder_wave import (
         waveform_vocode)
     from realtime_yukarin_tpu_torch.training import losses
     b = batch
     wave, _ = waveform_vocode(net, b.f0_voc, b.env_voc, b.ap_voc, b.mc_voc,
                               b.noise, cfg.vocoder_wave, cfg.dsp)
-    return wave, 0.5 * losses.multi_resolution_stft(wave, b.wave_voc)
+    return wave, 0.5 * losses.multi_resolution_stft(wave, b.wave_voc,
+                                                    mesh=mesh)
 
 
 def grad_error(d: list, c: list) -> tuple[float, float, float]:
@@ -949,7 +992,9 @@ def batched_phase(cfg) -> dict:
     for BATCH_STEPS steps; lanes held to single streams, a paused lane's
     carry bit for bit, a reset lane against a fresh stream, one launch of
     each forward kernel per step at R = 20 * BATCH_STREAMS, and a step
-    with no host synchronisation.  Returns the run's launches."""
+    with no host synchronisation.  Returns the run's launches, its output
+    [steps, N, So] and every lane's voicing [steps, N, Fc] (phase 18's
+    reference)."""
     import torch
     from realtime_yukarin_tpu_torch.ops import cuda
     from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
@@ -983,8 +1028,9 @@ def batched_phase(cfg) -> dict:
             if k == PAUSE_STEPS[1]:
                 after = tree_leaves(server.lane_carry(PAUSED_LANE))
                 same = all(torch.equal(a, b) for a, b in zip(before, after))
-            voicing.append([(server.lane_carry(i).f0_cache[-Fc:] > 0)
-                            .cpu().numpy() for i in held])
+            voicing.append(torch.stack([
+                server.lane_carry(i).f0_cache[-Fc:] > 0
+                for i in range(N)]).cpu().numpy())
     finally:
         undo()
     launches = launch_counts()
@@ -1005,9 +1051,9 @@ def batched_phase(cfg) -> dict:
                          f"{sorted(set(rows[name]))}")
     if not same or np.abs(paused).max() != 0.0:
         fails.append(f"paused lane {PAUSED_LANE}")
-    for j, lane in enumerate(held):
+    for lane in held:
         y, v = single_run(params, cfg32, keys[lane], chunks[:, lane])
-        vb = np.stack([s[j] for s in voicing])
+        vb = np.stack(voicing)[:, lane]
         err = rel_peak(out[:, lane].reshape(-1), y)
         same_v = bool((vb == v).all())
         print(f"[batched] lane {lane} vs a single stream: max_err/peak="
@@ -1036,7 +1082,7 @@ def batched_phase(cfg) -> dict:
           "host synchronisation")
     if fails:
         raise AssertionError(f"batched serving: {fails}")
-    return launches
+    return launches, out, np.stack(voicing)
 
 
 # a record_function span's name ("Optimizer.step#AdamW.step"); kernel names
@@ -1649,6 +1695,491 @@ def corpus_phase(cfg, dev, checked: dict[str, set]) -> dict[str, dict]:
     return out
 
 
+# -- two ranks on one card over torch.distributed (phase 18) ----------------
+
+def mh_serving(cfg, dev) -> dict:
+    """A rank's share of phase 12's run: BATCH_STREAMS lanes in float32 over
+    the process group, this rank feeding its ``local_slots`` through
+    ``step_local`` under phase 12's schedule."""
+    import torch
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    server = BatchedServer(seeded_params(cfg32), cfg32,
+                           num_streams=BATCH_STREAMS, seed=SEED, device=dev)
+    N, steps, S = BATCH_STREAMS, BATCH_STEPS, server.chunk_samples
+    lo, hi = server.local_slots.start, server.local_slots.stop
+    Fc = cfg.streaming.chunk_frames(cfg.dsp)
+    x = lane_signals(N, LANE_STEPS, cfg.dsp.in_rate, S)[lo:hi, : steps * S]
+    chunks = x.reshape(hi - lo, steps, S).transpose(1, 0, 2)
+    outs, voicing = [], []
+    for k in range(steps):
+        live = np.ones(N, bool)
+        live[PAUSED_LANE] = not PAUSE_STEPS[0] <= k <= PAUSE_STEPS[1]
+        reset = np.zeros(N, bool)
+        reset[RESET_LANE] = k == RESET_STEP
+        outs.append(server.step_local(chunks[k], live=live[lo:hi],
+                                      reset=reset[lo:hi]))
+        voicing.append(torch.stack([
+            server.lane_carry(i).f0_cache[-Fc:] > 0
+            for i in range(hi - lo)]).cpu().numpy())
+    return {"out": np.stack(outs), "voicing": np.stack(voicing),
+            "slots": np.asarray([lo, hi])}
+
+
+def mh_serve_timing(cfg, dev) -> dict:
+    """bf16 BatchedServer over the process group at BATCH_STREAMS lanes,
+    both ranks stepping at once (a barrier first): this rank's p50 / p99
+    step wall time, lanes, launches per step and a profiler window."""
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.multihost import sync_hosts
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+
+    server = BatchedServer(seeded_params(cfg), cfg,
+                           num_streams=BATCH_STREAMS, seed=SEED, device=dev)
+    S, (lo, hi) = server.chunk_samples, (server.local_slots.start,
+                                         server.local_slots.stop)
+    feed = iter(lane_signals(BATCH_STREAMS, LANE_STEPS, cfg.dsp.in_rate,
+                             S)[lo:hi].reshape(hi - lo, LANE_STEPS, S)
+                .transpose(1, 0, 2).copy())
+    for _ in range(SERVE_WARMUP):
+        server.step_local(next(feed))
+    sync_hosts()
+    cuda.reset_counts()
+    walls = []
+    for _ in range(SERVE_STEPS):
+        t0 = time.perf_counter()
+        y = server.step_local(next(feed))
+        walls.append(time.perf_counter() - t0)
+    if not np.isfinite(y).all():
+        raise AssertionError("bf16 serving: non-finite output")
+    per_step = {k: n / SERVE_STEPS for k, n in launch_counts().items()}
+    stats = profile_stats(lambda: server.step_local(next(feed)),
+                          PROFILE_STEPS)
+    stats.pop("by_name")
+    return dict(p50_ms=float(np.percentile(walls, 50)) * 1e3,
+                p99_ms=float(np.percentile(walls, 99)) * 1e3,
+                lanes=hi - lo, launches=per_step, **stats)
+
+
+def mh_batches(cfg, dev, rank: int):
+    """Phase 18's training batch of ``rank`` (TRAIN_BATCH x TRAIN_FRAMES,
+    ``cli.train``'s per-rank seed)."""
+    from realtime_yukarin_tpu_torch.cli.train import RANK_SEED_STRIDE
+    from realtime_yukarin_tpu_torch.training.data import make_batch
+    return make_batch(cfg, TRAIN_BATCH,
+                      seconds=TRAIN_FRAMES * cfg.dsp.hop / cfg.dsp.sample_rate,
+                      seed=SEED + 21 + rank * RANK_SEED_STRIDE, device=dev)
+
+
+def cat_batches(batches):
+    import torch
+    from realtime_yukarin_tpu_torch.training.train_step import Batch
+    return Batch(**{f.name: torch.cat([getattr(b, f.name) for b in batches])
+                    for f in dataclasses.fields(Batch)})
+
+
+def mh_train(cfg, run_dir, dev) -> tuple[dict, dict]:
+    """MH_TRAIN_STEPS joint steps at model_parallel 1 (this rank's half of
+    the batch), then as many at model_parallel 2 (the whole batch, the
+    weights split), both from phase 7's weights.  Returns ({M: losses per
+    step}, arrays): each run's first gradient (model shards gathered,
+    summed over the data ranks) and this rank's part of the wave
+    decoder's loss cotangent there."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.voice_changer import param_leaves
+    from realtime_yukarin_tpu_torch.parallel.mesh import (gather_model,
+                                                          make_mesh,
+                                                          sharded_leaf_ids)
+    from realtime_yukarin_tpu_torch.parallel.multihost import process_index
+    from realtime_yukarin_tpu_torch.training import train_step as ts
+
+    halves = [ts.Batch(**torch.load(pathlib.Path(run_dir) / f"batch_{r}.pt",
+                                    weights_only=True)).to(dev)
+              for r in range(MH_RANKS)]
+    params = perturbed_training_params(cfg)
+    losses, arrays = {}, {}
+    for M in (1, MH_RANKS):
+        mesh = make_mesh(M)
+        batch = (halves[process_index()] if M == 1 else cat_batches(halves))
+        step, shard = ts.make_sharded_train_step(cfg, mesh)
+        state = shard(ts.init_train_state(params, dev))
+        _, grads = ts.loss_and_grads(state.params, batch, cfg, mesh)
+        split = sharded_leaf_ids(state.params)
+        for k, ps in param_leaves(state.params).items():
+            for i, (p, g) in enumerate(zip(ps, grads[k])):
+                g = gather_model(g, mesh, 0) if id(p) in split else g
+                arrays[f"M{M}/grad/{k}/{i}"] = g.cpu().numpy()
+        wave, term = wave_render(state.params["vocoder_wave"], batch, cfg,
+                                 mesh)
+        arrays[f"M{M}/cotangent"] = torch.autograd.grad(
+            term, wave)[0].cpu().numpy()
+        losses[M] = []
+        for _ in range(MH_TRAIN_STEPS):
+            state, m = step(state, batch)
+            losses[M].append({k: float(v) for k, v in m.items()})
+    return losses, arrays
+
+
+def mh_socket(cfg, dev) -> dict:
+    """This rank's SocketVoiceServer (float32, its half of
+    MH_SOCKET_STREAMS slots) and one client on it."""
+    from realtime_yukarin_tpu_torch.parallel.multihost import process_index
+    from realtime_yukarin_tpu_torch.runtime.socket_server import (
+        SocketVoiceServer, convert_over_socket)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    with SocketVoiceServer(seeded_params(cfg32), cfg32,
+                           num_streams=MH_SOCKET_STREAMS, seed=SEED,
+                           device=dev) as srv:
+        x = mh_socket_signal(cfg32, process_index())
+        y = convert_over_socket(*srv.address, x)
+        return {"out": y, "slot": np.asarray(srv._server.local_slots.start)}
+
+
+def mh_socket_signal(cfg, rank: int) -> np.ndarray:
+    return test_signal(MH_SOCKET_SECONDS, cfg.dsp.in_rate, SEED + 31 + rank)
+
+
+def mh_nccl_helpers(dev) -> None:
+    """The layout's collectives on the card over the NCCL group of one
+    rank: a model gather, a data-group sum, a split layer."""
+    import copy
+
+    import torch
+    import torch.distributed as dist
+    from realtime_yukarin_tpu_torch.models.acoustic import conv1d_valid
+    from realtime_yukarin_tpu_torch.parallel.mesh import (Mesh, gather_model,
+                                                          sum_over_data_)
+
+    world = dist.group.WORLD
+    mesh = Mesh(0, 1, 1, data_group=world, model_group=world)
+    t = torch.arange(12.0, device=dev).reshape(3, 4)
+    if not torch.equal(gather_model(t, mesh, 0), t):
+        raise AssertionError("NCCL gather over one rank changed the tensor")
+    u = t.clone()
+    sum_over_data_([u], mesh)
+    if not torch.equal(u, t):
+        raise AssertionError("NCCL sum over one rank changed the tensor")
+    conv = torch.nn.Conv1d(4, 6, 3).to(dev)
+    split = copy.deepcopy(conv)
+    split.model_shard = mesh             # a model group of one rank
+    x = torch.randn(2, 10, 4, device=dev)
+    if not torch.equal(conv1d_valid(x, split, torch.float32),
+                       conv1d_valid(x, conv, torch.float32)):
+        raise AssertionError("a split conv over one NCCL rank differs")
+
+
+def multihost_worker(mode: str, rank: int, world: int, port: int,
+                     run_dir: str, device: str) -> int:
+    """A rank of phase 18 (this script run with MH_FLAG): joins the group
+    on ``device`` (gloo ranks, or the NCCL rank of a group of one), runs
+    its part at the parent's Config (``config.json``), writes its numbers,
+    arrays and kernel launch shapes to ``run_dir``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from realtime_yukarin_tpu_torch.config import Config
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.multihost import (
+        init_multihost, sync_hosts)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if mode == "nccl":
+        # a group of one: init_multihost treats one process as no group
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+            rank=0, device_id=torch.device("cuda", 0),
+            timeout=datetime.timedelta(seconds=MH_GROUP_TIMEOUT_S))
+    else:
+        init_multihost(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                       device=dev, timeout_s=MH_GROUP_TIMEOUT_S)
+    if (dist.get_rank(), dist.get_world_size()) != (rank, world):
+        raise AssertionError("the process group is not the one asked for")
+    cfg = Config.from_dict(json.loads(
+        (pathlib.Path(run_dir) / "config.json").read_text()))
+    rec = {"backend": dist.get_backend()}
+    arrays = {}
+    shapes, undo = record_shapes()
+    try:
+        cuda.reset_counts()
+        served = mh_serving(cfg, dev)
+        rec["serve_launches"] = launch_counts()
+        arrays.update({f"serve/{k}": v for k, v in served.items()})
+        if mode == "nccl":
+            mh_nccl_helpers(dev)
+        else:
+            rec["timing"] = mh_serve_timing(cfg, dev)
+            cuda.reset_counts()
+            rec["losses"], train_arrays = mh_train(cfg, run_dir, dev)
+            rec["train_launches"] = launch_counts()
+            arrays.update(train_arrays)
+            arrays.update({f"socket/{k}": v
+                           for k, v in mh_socket(cfg, dev).items()})
+    finally:
+        undo()
+    rec["shapes"] = {k: sorted(set(v)) for k, v in shapes.items()}
+    tag = f"{mode}_{rank}"
+    np.savez(pathlib.Path(run_dir) / f"{tag}.npz", **arrays)
+    (pathlib.Path(run_dir) / f"{tag}.json").write_text(json.dumps(rec))
+    sync_hosts()
+    dist.destroy_process_group()
+    print(f"[multihost] worker {tag} done", flush=True)
+    return 0
+
+
+def mh_run(run_dir, mode: str, world: int, dev) -> list[dict]:
+    """Run phase 18's ``mode`` workers (``world`` processes on this card)
+    and wait; raise if any fails or outlasts MH_TIMEOUT_S.  Returns each
+    rank's record with its arrays under ``"arrays"``."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [open(pathlib.Path(run_dir) / f"{mode}_{r}.log", "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), MH_FLAG,
+         mode, str(r), str(world), str(port), str(run_dir), str(dev)],
+        stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        deadline = time.monotonic() + MH_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "\n".join(
+            f"--- {mode} rank {r}:\n" + (pathlib.Path(run_dir)
+                                         / f"{mode}_{r}.log")
+            .read_text()[-3000:] for r in failed)
+        raise AssertionError(f"phase 18: {mode} ranks {failed} failed "
+                             f"(exit {[procs[r].returncode for r in failed]})"
+                             f"\n{tails}")
+    out = []
+    for r in range(world):
+        rec = json.loads((pathlib.Path(run_dir) / f"{mode}_{r}.json")
+                         .read_text())
+        with np.load(pathlib.Path(run_dir) / f"{mode}_{r}.npz") as f:
+            rec["arrays"] = dict(f)
+        out.append(rec)
+    return out
+
+
+def mh_check_serving(label: str, ranks: list[dict], ref_out, ref_voicing,
+                     fails: list) -> None:
+    """Each rank's rows against phase 12's one-process run."""
+    for r, rec in enumerate(ranks):
+        a = rec["arrays"]
+        lo, hi = (int(v) for v in a["serve/slots"])
+        got, ref = a["serve/out"], ref_out[:, lo:hi]
+        err = rel_peak(got.reshape(-1), ref.reshape(-1))
+        same_v = bool((a["serve/voicing"] == ref_voicing[:, lo:hi]).all())
+        paused = (PAUSED_LANE in range(lo, hi) and np.abs(
+            got[PAUSE_STEPS[0]: PAUSE_STEPS[1] + 1, PAUSED_LANE - lo]
+        ).max() == 0.0)
+        print(f"[multihost] {label} rank {r}: slots [{lo}, {hi}) of "
+              f"{BATCH_STREAMS} vs one process (phase 12): max_err/peak="
+              f"{err:.3e} (tol {BATCH_TOL:g}), bit-equal="
+              f"{bool(np.array_equal(got, ref))}, voicing identical="
+              f"{same_v}" + (f", paused lane {PAUSED_LANE} silent={paused}"
+                             if PAUSED_LANE in range(lo, hi) else ""))
+        if err > BATCH_TOL or not same_v or (
+                PAUSED_LANE in range(lo, hi) and not paused):
+            fails.append(f"{label} serving rank {r}")
+
+
+def mh_reference_train(cfg, dev, batch, cotangents: dict) -> dict:
+    """One process on the whole batch from phase 7's weights: the first
+    gradient, the wave decoder's leaves at each run's own cotangent
+    (J^T c, phase 7's way), and MH_TRAIN_STEPS steps' losses."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.voice_changer import param_leaves
+    from realtime_yukarin_tpu_torch.training import train_step as ts
+
+    state = ts.init_train_state(perturbed_training_params(cfg), dev)
+    _, grads = ts.loss_and_grads(state.params, batch, cfg)
+    wave, _ = wave_render(state.params["vocoder_wave"], batch, cfg)
+    leaves = param_leaves(state.params)["vocoder_wave"]
+    at = {M: torch.autograd.grad(wave, leaves, retain_graph=True,
+                                 grad_outputs=torch.from_numpy(c).to(dev))
+          for M, c in cotangents.items()}
+    step = ts.make_train_step(cfg)
+    losses = []
+    for _ in range(MH_TRAIN_STEPS):
+        state, m = step(state, batch)
+        losses.append({k: float(v) for k, v in m.items()})
+    return {"grads": grads, "wave_at": at, "losses": losses,
+            "names": [n for n, _ in state.params["vocoder_wave"]
+                      .named_parameters()]}
+
+
+def mh_check_train(ranks: list[dict], ref: dict, fails: list) -> None:
+    """Losses (PARITY_LOSS_TOL relative, every step, every rank alike),
+    the first gradients of stage 1, stage 2 and the DDSP vocoder
+    (PARITY_GRAD_TOL of each subtree's peak), the wave decoder's leaves at
+    the run's own cotangent (PARITY_WAVE_TOL / PARITY_WAVE_LEAF_TOL)."""
+    import torch
+    for M in (1, MH_RANKS):
+        a = ranks[0]["arrays"]
+        for s in range(MH_TRAIN_STEPS):
+            got = [rec["losses"][str(M)][s] for rec in ranks]
+            rel = max(abs(got[0][k] - v) / max(abs(v), 1e-12)
+                      for k, v in ref["losses"][s].items())
+            alike = all(g == got[0] for g in got)
+            print(f"[multihost] train model_parallel {M} step {s + 1}: "
+                  f"loss {got[0]['loss']:.6f} vs one process "
+                  f"{ref['losses'][s]['loss']:.6f}, max rel err {rel:.3e} "
+                  f"(tol {PARITY_LOSS_TOL:g}), ranks alike={alike}")
+            if rel > PARITY_LOSS_TOL or not alike:
+                fails.append(f"train M={M} step {s + 1} losses")
+        for k, tol in PARITY_GRAD_TOL.items():
+            got = [torch.from_numpy(a[f"M{M}/grad/{k}/{i}"])
+                   for i in range(len(ref["grads"][k]))]
+            rel, peak, cos = grad_error(got, [g.cpu() for g in
+                                              ref["grads"][k]])
+            print(f"[multihost] train model_parallel {M} first gradient "
+                  f"{k}: max_err/peak {rel:.3e} (peak {peak:.3e}, cosine "
+                  f"{cos:.6f}), tol {tol:g}")
+            if rel > tol:
+                fails.append(f"train M={M} gradient {k}")
+        worst = 0.0
+        for i, name in enumerate(ref["names"]):
+            g = torch.from_numpy(a[f"M{M}/grad/vocoder_wave/{i}"])
+            r_leaf, _, _ = grad_error([g], [ref["wave_at"][M][i].cpu()])
+            tol = PARITY_WAVE_TOL.get(name, PARITY_WAVE_LEAF_TOL)
+            worst = max(worst, r_leaf / tol)
+            if r_leaf > tol:
+                fails.append(f"train M={M} vocoder_wave {name}")
+        print(f"[multihost] train model_parallel {M} vocoder_wave leaves at "
+              f"the run's own cotangent: worst error {worst:.3f} of its "
+              f"tolerance")
+
+
+def mh_reference_socket(cfg, dev) -> list[np.ndarray]:
+    """Each rank's client served by one process: a SocketVoiceServer whose
+    layout puts it at that rank's place (``Mesh(r, MH_RANKS, 1)``: the same
+    global slots, lane keys and lanes per step, no process group), so
+    its client lands on the same global slot."""
+    from realtime_yukarin_tpu_torch.parallel.mesh import Mesh
+    from realtime_yukarin_tpu_torch.runtime.socket_server import (
+        SocketVoiceServer, convert_over_socket)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = []
+    for r in range(MH_RANKS):
+        with SocketVoiceServer(seeded_params(cfg32), cfg32,
+                               num_streams=MH_SOCKET_STREAMS, seed=SEED,
+                               device=dev, mesh=Mesh(r, MH_RANKS, 1)) as srv:
+            out.append(convert_over_socket(*srv.address,
+                                           mh_socket_signal(cfg32, r)))
+    return out
+
+
+def multihost_phase(cfg, dev, checked: dict[str, set], batched_out,
+                    batched_voicing) -> dict[str, dict]:
+    """Phase 18: (a) serving over two gloo ranks on this card against
+    phase 12's one process, the same over one NCCL rank, and both ranks'
+    bf16 timing; (b) sharded training at model_parallel 1 and 2 against
+    one process on the whole batch; (c) one socket client per rank against
+    one process.  Every kernel shape the ranks launched must be one phase
+    3 held.  Returns the ranks' launches on the paths."""
+    import tempfile
+
+    import torch
+    fails = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_") as d:
+        halves = [mh_batches(cfg, dev, r) for r in range(MH_RANKS)]
+        for r, b in enumerate(halves):
+            torch.save({f.name: getattr(b, f.name).cpu()
+                        for f in dataclasses.fields(b)},
+                       pathlib.Path(d) / f"batch_{r}.pt")
+        t0 = time.perf_counter()
+        (pathlib.Path(d) / "config.json").write_text(
+            json.dumps(cfg.to_dict()))
+        gloo = mh_run(d, "gloo", MH_RANKS, dev)
+        print(f"[multihost] gloo ranks: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        nccl = mh_run(d, "nccl", 1, dev)
+        print(f"[multihost] NCCL rank: {time.perf_counter() - t0:.1f} s, "
+              f"backend {nccl[0]['backend']}")
+    mh_check_serving("gloo", gloo, batched_out, batched_voicing, fails)
+    mh_check_serving("nccl", nccl, batched_out, batched_voicing, fails)
+    for r, rec in enumerate(gloo):
+        t = rec["timing"]
+        print(f"[multihost] bf16 rank {r} ({t['lanes']} lanes, both ranks "
+              f"at once): step wall p50 {t['p50_ms']:.3f} ms p99 "
+              f"{t['p99_ms']:.3f} ms; launches/step "
+              f"{ {k: t['launches'][k] for k in FORWARD_KERNELS} }; "
+              f"profile host {t['wall_ms']:.3f} ms/step, device busy "
+              f"{t['busy_ms']:.3f} ms/step, idle share "
+              + (f"{t['idle']:.3f}" if t["idle"] is not None
+                 else "not measured"))
+        if any(t["launches"][k] != 1 for k in FORWARD_KERNELS):
+            fails.append(f"bf16 rank {r}: launches {t['launches']}")
+    chunk_s = cfg.streaming.chunk_samples(cfg.dsp) / cfg.dsp.sample_rate
+    agg = sum(rec["timing"]["lanes"] * chunk_s / rec["timing"]["p50_ms"]
+              * 1e3 for rec in gloo)
+    print(f"[multihost] bf16 aggregate x{agg:.1f} realtime over both ranks "
+          f"({BATCH_STREAMS} lanes; phase 13 is one process at "
+          f"{BATCH_STREAMS})")
+
+    batch = cat_batches(halves)
+    ref = mh_reference_train(cfg, dev, batch, {
+        1: np.concatenate([rec["arrays"]["M1/cotangent"] for rec in gloo]),
+        MH_RANKS: gloo[0]["arrays"][f"M{MH_RANKS}/cotangent"]})
+    mh_check_train(gloo, ref, fails)
+    for r, rec in enumerate(gloo):
+        tl = rec["train_launches"]
+        print(f"[multihost] train rank {r}: launches {tl}")
+        if min(tl["harmonic_bank"], tl["harmonic_bank_bwd"]) < \
+                2 * MH_TRAIN_STEPS:
+            fails.append(f"train rank {r}: kernels 1 and 4 not launched in "
+                         f"every step: {tl}")
+
+    refs = mh_reference_socket(cfg, dev)
+    for r, rec in enumerate(gloo):
+        y, slot = rec["arrays"]["socket/out"], int(rec["arrays"]["socket/slot"])
+        same = len(y) == len(refs[r]) and bool(np.array_equal(y, refs[r]))
+        n = min(len(y), len(refs[r]))
+        err = rel_peak(y[:n], refs[r][:n]) if n else float("inf")
+        print(f"[multihost] socket rank {r} client (global slot {slot}): "
+              f"{len(y)} samples, bit-equal to one process={same} "
+              f"(max_err/peak {err:.3e})")
+        if not same:
+            fails.append(f"socket rank {r}")
+
+    unchecked = {}
+    for rec in gloo + nccl:
+        for name, seen in rec["shapes"].items():
+            extra = {tuple(x) for x in seen} - checked[name]
+            if extra:
+                unchecked.setdefault(name, set()).update(extra)
+    print("[multihost] kernel shapes launched: " + "; ".join(
+        f"{name} {sorted({tuple(x) for rec in gloo + nccl for x in rec['shapes'][name]})}"
+        for name in checked))
+    if unchecked:
+        fails.append(f"shapes phase 3 did not check: {unchecked}")
+    if fails:
+        raise AssertionError(f"phase 18: {fails}")
+    print("[multihost] every shape of phase 18 was held against the plain "
+          "version in phase 3")
+    return {f"{mode} rank {r} {part}": rec[f"{part}_launches"]
+            for mode, recs in (("gloo", gloo), ("nccl", nccl))
+            for r, rec in enumerate(recs)
+            for part in ("serve", "train") if f"{part}_launches" in rec}
+
+
 def main() -> int:
     try:
         import torch
@@ -1738,7 +2269,8 @@ def main() -> int:
           f"{analysis_rows}, bank {bank_rows}")
     kname = "harmonic_bank_bwd"
     names = ("d_aL", "d_aR", "d_phi", "d_frac")
-    for R in (TRAIN_FRAMES, QUALITY_ROWS, TRAIN_BATCH * TRAIN_FRAMES):
+    for R in (TRAIN_FRAMES, QUALITY_ROWS, TRAIN_BATCH * TRAIN_FRAMES,
+              MH_TRAIN_ROWS):
         kern, plain, nbytes, nflops, plain64, amps_only = bwd_case(
             R, cfg, dev, rng)
         outs, refs, ref64 = kern(), plain(), plain64()
@@ -1796,6 +2328,9 @@ def main() -> int:
             raise AssertionError(f"{kname} R={R} d_aL and d_aR only: error "
                                  f"{max(a_errs):.3e} above {TOL[kname]:g}")
         checked[kname].add((R, H_d, hop_d, False))
+        if R != TRAIN_BATCH * TRAIN_FRAMES:
+            continue
+        # the kernels line's numbers: the training batch's width
         record[kname] = dict(max_abs_err=err_abs, ms=ms, plain_ms=plain_ms,
                              bound_ms=b_ms, bound_by=b_by, library_ms=None,
                              device_ms=dev_ms, plain_device_ms=plain_dev,
@@ -1903,7 +2438,7 @@ def main() -> int:
 
     # 12. batched serving at 64 streams, float32
     t0 = time.perf_counter()
-    batched_launches = batched_phase(cfg)
+    batched_launches, batched_out, batched_voicing = batched_phase(cfg)
     print(f"[batched] phase seconds {time.perf_counter() - t0:.1f}")
 
     # 13. serving throughput, bf16
@@ -1929,13 +2464,19 @@ def main() -> int:
     # 17. the corpus training path and the quality recipe
     corpus_launches = corpus_phase(cfg, dev, checked)
 
-    # 18. kernels line (launches: every path's run — the default stream,
+    # 18. two ranks on this card over torch.distributed
+    t0 = time.perf_counter()
+    multihost_launches = multihost_phase(cfg, dev, checked, batched_out,
+                                         batched_voicing)
+    print(f"[multihost] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 19. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,
-    # the batched server, corpus preparation, corpus training and the
-    # quality recipe), 19. result line
+    # the batched server, corpus preparation, corpus training, the quality
+    # recipe, and the ranks' serving and training), 20. result line
     paths = [launches, train_launches, *offline_launches.values(),
              *stream_launches.values(), batched_launches,
-             *corpus_launches.values()]
+             *corpus_launches.values(), *multihost_launches.values()]
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name],
@@ -1947,4 +2488,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == MH_FLAG:
+        sys.exit(multihost_worker(sys.argv[2], int(sys.argv[3]),
+                                  int(sys.argv[4]), int(sys.argv[5]),
+                                  sys.argv[6], sys.argv[7]))
     sys.exit(main())

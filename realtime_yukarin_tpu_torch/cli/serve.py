@@ -21,6 +21,11 @@ Usage:
     # 64 concurrent TCP streams:
     python -m realtime_yukarin_tpu_torch.cli.serve --socket 9999 \
         --num_streams 64
+
+Several ranks (one process per GPU): set ``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID`` for every process, as for the
+JAX package.  With ``--socket PORT`` rank r then serves its share of the
+``--num_streams`` slots (rounded up to the ranks) on port PORT + r.
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ import torch
 from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.models.voice_changer import (init_params,
                                                              load_all_params)
+from realtime_yukarin_tpu_torch.parallel.multihost import (init_multihost,
+                                                           rank_device)
 from realtime_yukarin_tpu_torch.streaming.pipeline import resolve_device
 from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
 from realtime_yukarin_tpu_torch.utils.audio_io import (read_raw_f32,
@@ -98,7 +105,12 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--realtime_factor_serve", type=float, default=0.0,
                    help="throttle the --socket ticker (0 = free-running)")
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; no fallback)")
+                   help="torch device (default cuda: this rank's card; "
+                        "no fallback)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend of a multi-process run "
+                        "(default: nccl on cuda, gloo on cpu; gloo for "
+                        "ranks sharing a card)")
     args = p.parse_args(argv)
 
     if args.list_devices:
@@ -109,6 +121,10 @@ def main(argv: list[str] | None = None) -> None:
         return
 
     device = resolve_device(args.device)
+    # a multi-process launch (the JAX package's environment names; a no-op
+    # without them): --socket then serves this rank's slot range
+    rank, world = init_multihost(backend=args.backend, device=device)
+    device = rank_device(device)
     cfg = Config.from_yaml(args.config_path) if args.config_path else Config()
     params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
                          device)
@@ -121,16 +137,17 @@ def main(argv: list[str] | None = None) -> None:
     if args.socket is not None:
         from realtime_yukarin_tpu_torch.runtime.socket_server import \
             SocketVoiceServer
+        port = args.socket + rank if args.socket else 0
         with trace(args.profile_dir), SocketVoiceServer(
-                params, cfg, host=args.host, port=args.socket,
+                params, cfg, host=args.host, port=port,
                 num_streams=args.num_streams,
                 realtime_factor=args.realtime_factor_serve,
                 use_sr=not args.no_sr,
                 vocoder_mode=args.vocoder_mode,
                 seed=args.seed, device=device) as srv:
             print(f"[serve] socket server on {srv.address}, "
-                  f"{len(srv._slots)} stream slots on {device}",
-                  file=sys.stderr)
+                  f"{len(srv._slots)} local stream slots on {device} "
+                  f"(host {rank}/{world})", file=sys.stderr)
             t_end = (None if args.duration is None
                      else time.monotonic() + args.duration)
             try:

@@ -1,4 +1,4 @@
-"""Training CLI of the PyTorch port (port of ``cli/train.py``), one device.
+"""Training CLI of the PyTorch port (port of ``cli/train.py``).
 
 Trains all model stages jointly (stage-1 mc regression, stage-2 envelope
 super-resolution, both neural vocoders' multi-resolution STFT through the
@@ -14,17 +14,25 @@ Usage:
         [--finetune_converted STEPS] [--export_params params.npz]
     python -m realtime_yukarin_tpu_torch.cli.train --synthetic --steps 50
 
+Several ranks (one process per GPU, the same command on each): add
+``--coordinator_address HOST:PORT --num_processes N --process_id R`` (or
+set ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``)
+and optionally ``--model_parallel M``.  Each rank trains on its own
+``--batch_size`` rows; the global batch is the data ranks' rows together,
+and the weights the shard rule selects split over groups of M consecutive
+ranks (``parallel/mesh.py``).  Rank 0 logs, writes the checkpoints (whole,
+after gathering the split), fine-tunes and exports.
+
 ``--export_params`` writes the JAX package's ``.npz`` layout (the EMA
 generator under --gan, the fine-tuned tree after --finetune_converted),
 which ``realtime_yukarin_tpu``'s ``load_params`` and this port's
-``load_params_npz`` both read.  Multi-GPU / multi-host training is not
-ported yet; its flags are refused (with the ROADMAP.md item that brings
-it).
+``load_params_npz`` both read.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -33,28 +41,38 @@ from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.models.discriminator import init_discriminator
 from realtime_yukarin_tpu_torch.models.voice_changer import (init_params,
                                                              save_params_npz)
+from realtime_yukarin_tpu_torch.parallel.mesh import (check_divisible,
+                                                      gather_params,
+                                                      make_mesh)
+from realtime_yukarin_tpu_torch.parallel.multihost import (
+    broadcast_from_host0, init_multihost, rank_device)
 from realtime_yukarin_tpu_torch.streaming.pipeline import resolve_device
 from realtime_yukarin_tpu_torch.training.checkpoint import (
-    restore_checkpoint, save_checkpoint)
+    restore_checkpoint_to_all, save_checkpoint_from_host0)
 from realtime_yukarin_tpu_torch.training.data import make_batch
 from realtime_yukarin_tpu_torch.training.dataset import CorpusDataset
 from realtime_yukarin_tpu_torch.training.train_step import (
-    init_gan_train_state, init_train_state, make_gan_train_step,
-    make_train_step)
+    init_gan_train_state, init_train_state, make_sharded_gan_step,
+    make_sharded_train_step)
 
-_MULTI = "ROADMAP.md queue 1 item 11 (multi-GPU and multi-host)"
-# flag -> value that means "not used"
-UNSUPPORTED = {
-    "model_parallel": 1,
-    "coordinator_address": None,
-    "num_processes": None,
-    "process_id": None,
-}
+# a data rank's make_batch seed stride (the JAX package's per-host offset)
+RANK_SEED_STRIDE = 1_000_003
+
+
+def launch_world(args: argparse.Namespace) -> int:
+    """The number of ranks the launch arguments (or the environment) name:
+    1 without a coordinator."""
+    if not (args.coordinator_address
+            or os.environ.get("JAX_COORDINATOR_ADDRESS")):
+        return 1
+    if args.num_processes is not None:
+        return args.num_processes
+    return int(os.environ.get("JAX_NUM_PROCESSES", 1))
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
-    """Parse, then refuse at once what this port does not run and any
-    combination the run would refuse later."""
+    """Parse, then refuse at once any combination the run would refuse
+    later."""
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--prepared_dir", default=None,
                    help="output dir of cli.prepare")
@@ -93,20 +111,31 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--ckpt_every", type=int, default=200)
     p.add_argument("--log_every", type=int, default=10)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported: " + _MULTI)
+                   help="split the selected weights' output channels over "
+                        "groups of this many consecutive ranks; must "
+                        "divide the number of ranks.  One process drives "
+                        "one GPU (a JAX process can hold a whole mesh), "
+                        "so M > 1 needs M processes")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--coordinator_address", default=None,
-                   help="not ported: " + _MULTI)
+                   help="rank 0's HOST:PORT for a multi-process run; every "
+                        "rank runs this same command (default: "
+                        "$JAX_COORDINATOR_ADDRESS)")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="not ported: " + _MULTI)
+                   help="ranks in the run (default: $JAX_NUM_PROCESSES)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="not ported: " + _MULTI)
+                   help="this rank (default: $JAX_PROCESS_ID)")
+    p.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default: nccl on "
+                        "cuda, gloo on cpu; gloo for ranks sharing a card)")
     p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; no fallback)")
+                   help="torch device (default cuda: this rank's card; "
+                        "no fallback)")
     args = p.parse_args(argv)
-    for flag, unused in UNSUPPORTED.items():
-        if getattr(args, flag) != unused:
-            p.error(f"--{flag} is not ported yet: {_MULTI}")
+    try:
+        check_divisible(launch_world(args), args.model_parallel)
+    except ValueError as e:
+        p.error(f"--model_parallel: {e}")
     if not args.synthetic and not args.prepared_dir:
         p.error("need --prepared_dir or --synthetic")
     if args.finetune_converted and not args.prepared_dir:
@@ -120,35 +149,61 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 def main(argv: list[str] | None = None) -> None:
     args = parse_args(argv)
     device = resolve_device(args.device)
+    rank, world = init_multihost(args.coordinator_address,
+                                 args.num_processes, args.process_id,
+                                 backend=args.backend, device=device)
+    device = rank_device(device)
+    mesh = make_mesh(args.model_parallel)
+    is_host0 = rank == 0
+
+    def log(msg: str) -> None:
+        if is_host0:
+            print(msg)
+
+    if world > 1:
+        log(f"[train] {world} ranks: data {mesh.data_size} x model "
+            f"{mesh.model_parallel}, {args.batch_size} rows per data rank")
     cfg = Config.from_yaml(args.config_path) if args.config_path else Config()
-    params = init_params(cfg, torch.Generator().manual_seed(cfg.seed))
+    params = broadcast_from_host0(
+        init_params(cfg, torch.Generator().manual_seed(cfg.seed)))
     if args.gan:
-        disc = init_discriminator(cfg.super_resolution, cfg.dsp,
-                                  torch.Generator().manual_seed(cfg.seed + 1))
+        disc = broadcast_from_host0(init_discriminator(
+            cfg.super_resolution, cfg.dsp,
+            torch.Generator().manual_seed(cfg.seed + 1)))
         state = init_gan_train_state(params, disc, device, args.lr)
-        step_fn = make_gan_train_step(cfg, args.adv_weight)
+        step_fn, shard_state = make_sharded_gan_step(cfg, mesh,
+                                                     args.adv_weight)
     else:
         state = init_train_state(params, device, args.lr)
-        step_fn = make_train_step(cfg)
+        step_fn, shard_state = make_sharded_train_step(cfg, mesh)
 
+    # resume before the split: a checkpoint holds the whole state, and
+    # every rank takes rank 0's (no shared file system needed)
     start_step = 0
     if args.ckpt_dir:
-        state, start_step = restore_checkpoint(args.ckpt_dir, state)
+        state, start_step = restore_checkpoint_to_all(args.ckpt_dir, state)
         if start_step:
-            print(f"[train] resumed from step {start_step}")
+            log(f"[train] resumed from step {start_step}")
+    state = shard_state(state)
 
+    # every rank of a model group feeds the same rows: the seeds follow
+    # the data index (the rank itself at model_parallel 1)
+    data_index = mesh.data_index
     if args.synthetic:
         seconds = args.crop_frames * cfg.dsp.hop / cfg.dsp.sample_rate
 
         def next_batch(step: int):
             return make_batch(cfg, args.batch_size, seconds=seconds,
-                              seed=args.seed + step, device=device)
+                              seed=args.seed + step
+                              + data_index * RANK_SEED_STRIDE,
+                              device=device)
     else:
         ds = CorpusDataset(args.prepared_dir, cfg,
-                           crop_frames=args.crop_frames, seed=args.seed,
+                           crop_frames=args.crop_frames,
+                           seed=args.seed + data_index,
                            cache_utterances=args.cache_utterances,
                            device=device)
-        print(f"[train] corpus: {ds.num_utterances} utterance pairs")
+        log(f"[train] corpus: {ds.num_utterances} utterance pairs")
 
         def next_batch(step: int):
             return ds.sample_batch(args.batch_size)
@@ -161,27 +216,32 @@ def main(argv: list[str] | None = None) -> None:
             m = {k: float(v) for k, v in metrics.items()}
             rate = (step + 1 - start_step) / (time.perf_counter() - t0)
             msg = " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items()))
-            print(f"[train] step {step + 1}/{args.steps} {msg} "
-                  f"({rate:.2f} it/s on {device})")
+            log(f"[train] step {step + 1}/{args.steps} {msg} "
+                f"({rate:.2f} it/s on {device})")
         if args.ckpt_dir and ((step + 1) % args.ckpt_every == 0
                               or step + 1 == args.steps):
-            path = save_checkpoint(args.ckpt_dir, state, step + 1)
-            print(f"[train] checkpoint -> {path}")
+            path = save_checkpoint_from_host0(args.ckpt_dir, state, step + 1,
+                                              mesh)
+            log(f"[train] checkpoint -> {path}")
 
     # --gan: the inference tree is the EMA generator
-    final = state.ema_params if args.gan else state.params
+    final = gather_params(mesh, state.ema_params if args.gan
+                          else state.params)
     if args.finetune_converted:
-        from realtime_yukarin_tpu_torch.training.full_chain import (
-            converted_pairs, finetune_vocoder_on_converted)
-        pairs = converted_pairs(final, cfg, args.prepared_dir, device)
-        print(f"[train] fine-tuning vocoders on {len(pairs)} converted-"
-              f"feature utterances, {args.finetune_converted} steps")
-        final = finetune_vocoder_on_converted(
-            final, cfg, pairs, steps=args.finetune_converted,
-            lr=args.finetune_lr, crop_frames=args.crop_frames,
-            batch_size=args.batch_size, seed=args.seed, device=device)
+        if is_host0:
+            from realtime_yukarin_tpu_torch.training.full_chain import (
+                converted_pairs, finetune_vocoder_on_converted)
+            pairs = converted_pairs(final, cfg, args.prepared_dir, device)
+            print(f"[train] fine-tuning vocoders on {len(pairs)} "
+                  f"converted-feature utterances, "
+                  f"{args.finetune_converted} steps")
+            final = finetune_vocoder_on_converted(
+                final, cfg, pairs, steps=args.finetune_converted,
+                lr=args.finetune_lr, crop_frames=args.crop_frames,
+                batch_size=args.batch_size, seed=args.seed, device=device)
+        final = broadcast_from_host0(final)
 
-    if args.export_params:
+    if args.export_params and is_host0:
         save_params_npz(final, args.export_params)
         print(f"[train] inference params -> {args.export_params}")
 

@@ -22,16 +22,24 @@ import torch.nn as nn
 import torch.nn.functional as Fn
 
 from realtime_yukarin_tpu_torch.config import AcousticModelConfig
+from realtime_yukarin_tpu_torch.parallel.mesh import (column_parallel,
+                                                      model_shard)
 
 
 def conv1d_valid(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype,
                  padding: int = 0) -> torch.Tensor:
     """[(B,) T, C_in] -> [(B,) T + 2*padding - (k-1), C_out]: input and
     kernel cast to ``dtype`` before the conv, bias added in ``dtype``
-    (flax's order)."""
+    (flax's order).  A weight split over the model group computes this
+    rank's output channels and gathers the rest
+    (:func:`~realtime_yukarin_tpu_torch.parallel.mesh.column_parallel`)."""
     xt = x.transpose(-1, -2).to(dtype)
-    y = Fn.conv1d(xt if x.ndim == 3 else xt[None], conv.weight.to(dtype),
-                  padding=padding)
+    xt = xt if x.ndim == 3 else xt[None]
+
+    def local(z):
+        return Fn.conv1d(z, conv.weight.to(dtype), padding=padding)
+    y = (local(xt) if model_shard(conv) is None
+         else column_parallel(conv, xt, local, dim=1))
     y = (y if x.ndim == 3 else y[0]).transpose(-1, -2)
     return y + conv.bias.to(dtype)
 

@@ -15,6 +15,9 @@ import torch.nn.functional as Fn
 
 from realtime_yukarin_tpu_torch.config import DspConfig, SuperResolutionConfig
 from realtime_yukarin_tpu_torch.models.initializers import init_module
+from realtime_yukarin_tpu_torch.parallel.mesh import (batch_mean,
+                                                      column_parallel,
+                                                      model_shard)
 
 
 def conv1d_same_strided(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
@@ -26,7 +29,20 @@ def conv1d_same_strided(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
     out = -(-T // s)
     total = max((out - 1) * s + k - T, 0)
     xt = Fn.pad(x.transpose(-1, -2), (total // 2, total - total // 2))
-    return Fn.conv1d(xt, conv.weight, conv.bias, stride=s).transpose(-1, -2)
+    if model_shard(conv) is None:
+        y = Fn.conv1d(xt, conv.weight, conv.bias, stride=s)
+    else:
+        y = column_parallel(conv, xt, lambda z: Fn.conv1d(
+            z, conv.weight, stride=s), dim=1) + conv.bias[:, None]
+    return y.transpose(-1, -2)
+
+
+def dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer(x)``, column-split when its weight is a model shard."""
+    if model_shard(layer) is None:
+        return layer(x)
+    return column_parallel(layer, x, lambda z: Fn.linear(z, layer.weight),
+                           dim=-1) + layer.bias
 
 
 class EnvelopeDiscriminator(nn.Module):
@@ -51,10 +67,10 @@ class EnvelopeDiscriminator(nn.Module):
         return layers
 
     def forward(self, logE: torch.Tensor) -> torch.Tensor:
-        h = Fn.leaky_relu(self.freq_in(logE.float()), 0.2)
+        h = Fn.leaky_relu(dense(logE.float(), self.freq_in), 0.2)
         for conv in self.down:
             h = Fn.leaky_relu(conv1d_same_strided(h, conv), 0.2)
-        return self.head(h)[..., 0]
+        return dense(h, self.head)[..., 0]
 
 
 def init_discriminator(sr_cfg: SuperResolutionConfig, dsp: DspConfig,
@@ -71,11 +87,13 @@ def init_discriminator(sr_cfg: SuperResolutionConfig, dsp: DspConfig,
 # Hinge-GAN losses
 # ---------------------------------------------------------------------------
 
-def d_hinge_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor
-                 ) -> torch.Tensor:
-    return (torch.mean(torch.relu(1.0 - real_logits))
-            + torch.mean(torch.relu(1.0 + fake_logits)))
+def d_hinge_loss(real_logits: torch.Tensor, fake_logits: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
+    """Means over the global batch when ``mesh`` splits it
+    (:func:`~realtime_yukarin_tpu_torch.parallel.mesh.batch_mean`)."""
+    return (batch_mean(torch.relu(1.0 - real_logits), mesh)
+            + batch_mean(torch.relu(1.0 + fake_logits), mesh))
 
 
-def g_hinge_loss(fake_logits: torch.Tensor) -> torch.Tensor:
-    return -torch.mean(fake_logits)
+def g_hinge_loss(fake_logits: torch.Tensor, mesh=None) -> torch.Tensor:
+    return -batch_mean(fake_logits, mesh)

@@ -14,10 +14,16 @@ import torch.nn.functional as Fn
 from realtime_yukarin_tpu_torch.config import (DspConfig,
                                                SuperResolutionConfig)
 from realtime_yukarin_tpu_torch.models.acoustic import conv1d_valid
+from realtime_yukarin_tpu_torch.parallel.mesh import (column_parallel,
+                                                      model_shard)
 
 
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
-    return Fn.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    if model_shard(layer) is None:
+        return Fn.linear(x, layer.weight.to(dtype), layer.bias.to(dtype))
+    y = column_parallel(layer, x, lambda z: Fn.linear(
+        z, layer.weight.to(dtype)), dim=-1)
+    return y + layer.bias.to(dtype)
 
 
 class SRNet(nn.Module):

@@ -10,10 +10,20 @@ stream.  Streams join and leave by resetting their lane (the silence-fill
 contract); a lane whose producer has not delivered a chunk is paused by the
 ``live`` mask.
 
-One process on one GPU: there is no mesh, ``num_streams`` is taken as
-given, and the JAX package's host-local feed (``step_local``,
-``local_slots``) and its multi-host path are not ported yet; neither is
-``step_cost_analysis`` (XLA's cost model).
+Several ranks (``parallel/multihost.py``, one process per GPU): the
+global lanes split over the mesh's ``data`` ranks, ``num_streams`` rounded
+up to their count.  Each rank holds the carries of its contiguous slot
+range ``local_slots`` (the same range on every rank of a model group) and
+feeds its own rows through :meth:`BatchedServer.step_local`; lane i keeps
+the global lane key i.  At model_parallel 1 a step makes no collective:
+the lanes are independent, as in the JAX package's data-split program.
+With model_parallel M > 1 the selected weights split over the model group
+and every split layer gathers its output channels there, so the step is
+collective over that group, and its ranks feed the same rows (the
+counterpart of the JAX rule that replicated values are passed alike).
+Resets ride the in-step mask; ``step`` and ``reset_stream`` refuse at
+more than one rank.  The JAX package's ``step_cost_analysis`` (XLA's cost
+model) is not ported.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ import torch
 
 from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
 from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+from realtime_yukarin_tpu_torch.parallel.mesh import (Mesh, make_mesh,
+                                                      shard_params)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     lane_noise_keys, resolve_device, streaming_step)
 from realtime_yukarin_tpu_torch.streaming.state import (StreamCarry,
@@ -68,29 +80,38 @@ def make_batched_step(cfg: Config, use_sr: bool = True,
 
 
 class BatchedServer:
-    """Host-side N-stream server on one device (``cuda`` unless the caller
-    passes another; no fallback).
+    """Host-side N-stream server (``cuda`` unless the caller passes another
+    device; no fallback).
 
-    Feed the full batch with :meth:`step` (host arrays) or
-    :meth:`step_device` (device tensors).  Lane i's noise is
-    ``jax.random.fold_in(jax.random.key(seed), i)``'s, as in the JAX
-    package.  ``reset_stream(i)`` (or a reset mask passed to ``step``)
-    puts lane i back to the stored init carry.
+    One rank: feed the full batch with :meth:`step` (host arrays) or
+    :meth:`step_device` (device tensors).  Several ranks: each feeds the
+    rows of its ``local_slots`` with :meth:`step_local` (collective over
+    the model group at model_parallel > 1: every rank calls it as often).
+    Lane i's noise is ``jax.random.fold_in(jax.random.key(seed), i)``'s,
+    as in the JAX package.  ``reset_stream(i)`` (or a reset mask) puts lane
+    i back to the stored init carry.  ``mesh`` defaults to
+    ``make_mesh()``: data-parallel over every rank of the process group.
     """
 
     def __init__(self, params: dict, cfg: Config,
                  num_streams: int | None = None, use_sr: bool = True,
                  use_neural_vocoder: bool = False, seed: int = 0,
-                 vocoder_mode: str | None = None, device=None):
+                 vocoder_mode: str | None = None, device=None,
+                 mesh: Mesh | None = None):
         mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
         self.device = resolve_device(device)
         self._cfg = cfg
-        n = num_streams or cfg.serving.num_streams
+        self.mesh = mesh if mesh is not None else make_mesh()
+        dp = self.mesh.data_size
+        n = -(-(num_streams or cfg.serving.num_streams) // dp) * dp
         self.num_streams = n
+        lo = self.mesh.data_index * (n // dp)
+        self.local_slots = range(lo, lo + n // dp)
         self._geo = StreamGeometry.from_config(cfg, use_sr,
                                                vocoder_mode=mode)
         self._step = make_batched_step(cfg, use_sr, vocoder_mode=mode)
-        self._params = params_to(params, self.device)
+        self._params = shard_params(self.mesh,
+                                    params_to(params, self.device))
         # the silence analysis runs once; every lane starts from it, and a
         # reset lane goes back to this stored carry (no rebuild while the
         # other lanes wait)
@@ -98,12 +119,14 @@ class BatchedServer:
             self._init_carry = StreamCarry.init(cfg, self._geo, self._params,
                                                 self.device,
                                                 vocoder_mode=mode)
+        nl = len(self.local_slots)
         self._carries = tree_map(
-            lambda x: x.expand(n, *x.shape).clone(), self._init_carry)
-        self._keys = torch.tensor(lane_noise_keys(seed, n),
-                                  dtype=torch.int64, device=self.device)
-        self._all = torch.ones(n, dtype=torch.bool, device=self.device)
-        self._none = torch.zeros(n, dtype=torch.bool, device=self.device)
+            lambda x: x.expand(nl, *x.shape).clone(), self._init_carry)
+        self._keys = torch.tensor(
+            lane_noise_keys(seed, n)[lo: lo + nl], dtype=torch.int64,
+            device=self.device)
+        self._all = torch.ones(nl, dtype=torch.bool, device=self.device)
+        self._none = torch.zeros(nl, dtype=torch.bool, device=self.device)
 
     @property
     def chunk_samples(self) -> int:
@@ -127,20 +150,27 @@ class BatchedServer:
             m = m.to(self.device, torch.bool)
         else:
             m = torch.from_numpy(np.asarray(m, bool)).to(self.device)
-        if tuple(m.shape) != (self.num_streams,):
+        if tuple(m.shape) != tuple(default.shape):
             raise ValueError(f"mask of shape {tuple(m.shape)}, expected "
-                             f"({self.num_streams},)")
+                             f"{tuple(default.shape)}")
         return m
+
+    def _single(self, what: str) -> None:
+        if self.mesh.world > 1:
+            raise RuntimeError(f"{what} at {self.mesh.world} ranks: each "
+                               f"rank feeds its own rows (and resets) "
+                               f"through step_local()")
 
     def step_device(self, chunks: torch.Tensor, live=None, reset=None
                     ) -> torch.Tensor:
-        """chunks [N, chunk_samples] on the device -> converted [N,
-        chunk_out_samples] on the device, with no host synchronisation
-        when the masks are device tensors or None.  ``live`` (optional [N]
-        bool) pauses False lanes: their carry is kept and their output is
-        zeros.  ``reset`` ([N] bool) puts a lane back to the init carry
-        before its chunk."""
-        expected = (self.num_streams, self.chunk_samples)
+        """chunks [n, chunk_samples] on the device -> converted [n,
+        chunk_out_samples] on the device, n the lanes of ``local_slots``
+        (all N on one rank), with no host synchronisation when the masks
+        are device tensors or None.  ``live`` (optional [n] bool) pauses
+        False lanes: their carry is kept and their output is zeros.
+        ``reset`` ([n] bool) puts a lane back to the init carry before its
+        chunk."""
+        expected = (len(self.local_slots), self.chunk_samples)
         if tuple(chunks.shape) != expected:
             raise ValueError(f"chunks of shape {tuple(chunks.shape)}, "
                              f"expected {expected}")
@@ -151,15 +181,25 @@ class BatchedServer:
                 self._mask(reset, self._none))
         return out
 
+    def step_local(self, chunks_local: np.ndarray, live=None, reset=None
+                   ) -> np.ndarray:
+        """This rank's rows: chunks [n_local, chunk_samples] of global
+        slots ``local_slots`` -> converted [n_local, chunk_out_samples]
+        (host arrays); the masks [n_local] as in :meth:`step_device`.  One
+        rank: exactly :meth:`step`."""
+        x = torch.from_numpy(np.ascontiguousarray(chunks_local, np.float32))
+        return self.step_device(x.to(self.device), live, reset).cpu().numpy()
+
     def step(self, chunks: np.ndarray, live=None, reset=None) -> np.ndarray:
         """chunks [N, chunk_samples] -> converted [N, chunk_out_samples],
-        host arrays; the masks as in :meth:`step_device`."""
-        x = torch.from_numpy(np.ascontiguousarray(chunks, np.float32))
-        return self.step_device(x.to(self.device), live, reset).cpu().numpy()
+        host arrays; the masks as in :meth:`step_device`.  One rank only."""
+        self._single("step()")
+        return self.step_local(chunks, live, reset)
 
     def reset_stream(self, i: int) -> None:
         """Put lane i back to the stored init carry now (out of place, so
-        no other holder of the carries sees a change)."""
+        no other holder of the carries sees a change).  One rank only."""
+        self._single("reset_stream()")
         if not 0 <= i < self.num_streams:
             raise IndexError(f"stream {i} of {self.num_streams}")
         lane = torch.arange(self.num_streams, device=self.device) == i
@@ -168,5 +208,6 @@ class BatchedServer:
             self._carries, self._init_carry)
 
     def lane_carry(self, i: int) -> StreamCarry:
-        """Lane i's carry (views into the batched carry)."""
+        """Local lane i's carry (views into the batched carry); global slot
+        ``local_slots[i]``."""
         return tree_map(lambda c: c[i], self._carries)

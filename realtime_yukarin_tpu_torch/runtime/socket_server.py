@@ -22,12 +22,24 @@ Threading topology:
     runs the batched step on the CUDA stream that was current when the
     server was made, and pushes per-slot outputs.  Accept and client
     threads touch only ring buffers.
-  * slots are fixed; a new connection claims a free slot and schedules
-    its carry reset on the next tick's in-step reset mask (drop/rejoin);
-    a full server refuses with an immediate close.
+  * slots are fixed (this rank's ``BatchedServer.local_slots``); a new
+    connection claims a free slot and schedules its carry reset on the
+    next tick's in-step reset mask (drop/rejoin); a full server refuses
+    with an immediate close.
 
-One process on one GPU: the JAX package's multi-host path (every host
-ticking one global program in lockstep) is not ported yet.
+Several ranks (``parallel/multihost.py``): every rank runs this same
+server on its own port, accepts its own clients into its local slot range
+and feeds them through ``step_local``; the ranks' lanes are independent
+and each ticker runs at its own pace.  With a model split (``mesh`` with
+model_parallel > 1) the step is collective over the model group, whose
+ranks hold the same slots and must feed the same rows: the group's first
+rank alone takes clients, and its ticker sends each tick's chunks and
+live / reset masks to the others (one broadcast over the group), which
+step with them.  It ticks every period even with every lane idle, so the
+others never wait long in the broadcast, and resets ride the in-step
+mask.  Shut such ranks down together: closing the first rank releases the
+others; a rank that stops otherwise holds its partners in the collective
+until the group's timeout.
 
 ``realtime_factor`` throttles the ticker (1.0 = wall-clock realtime,
 0 = free-running for offline/batch use).
@@ -41,11 +53,36 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
 from realtime_yukarin_tpu_torch.runtime import RingBuffer
 from realtime_yukarin_tpu_torch.utils.metrics import ServingMetrics
+
+
+def take_chunk(slot: "_Slot", S: int, realtime: bool
+               ) -> tuple[np.ndarray | None, bool]:
+    """This tick's S input samples for an active slot (None to pause it),
+    and whether they are an underrun's silence.
+
+    S samples when its ring holds them.  After the client's EOF, at most S
+    of what is left, padded with silence (``drain_left`` counts down on
+    the all-silence chunks that drain the algorithmic latency).  The ring
+    is read once for the choice and again for the pop, and the reader may
+    push its last data and set ``eof`` in between, so the drain pops at
+    most S whatever the ring holds by then.  In realtime mode an underrun
+    is fed silence; free-running, the slot pauses."""
+    if slot.in_rb.available >= S:
+        return slot.in_rb.pop(S), False
+    if slot.eof:
+        tail = slot.in_rb.pop(min(slot.in_rb.available, S))
+        if len(tail) == 0:
+            slot.drain_left -= 1
+        chunk = np.zeros(S, np.float32)
+        chunk[:len(tail)] = tail
+        return chunk, False
+    return (np.zeros(S, np.float32) if realtime else None), realtime
 
 
 class _Slot:
@@ -67,14 +104,17 @@ class _Slot:
 
 class SocketVoiceServer:
     """Serve ``num_streams`` concurrent conversion streams over TCP, on
-    ``device`` (``cuda`` unless the caller passes another; no fallback)."""
+    ``device`` (``cuda`` unless the caller passes another; no fallback).
+    ``mesh`` is the BatchedServer's layout (default: data-parallel over the
+    process group).  A rank that follows its model group's first rank
+    takes no clients: its ``address`` is None."""
 
     def __init__(self, params: dict, cfg: Config, host: str = "127.0.0.1",
                  port: int = 0, num_streams: int = 8,
                  realtime_factor: float = 0.0, use_sr: bool = True,
                  use_neural_vocoder: bool = False, ring_seconds: float = 8.0,
                  seed: int = 0, sock_sndbuf: int | None = None,
-                 vocoder_mode: str | None = None, device=None):
+                 vocoder_mode: str | None = None, device=None, mesh=None):
         self._cfg = cfg
         self._sndbuf = sock_sndbuf    # bound kernel memory per client; small
         #                               values surface ring backpressure fast
@@ -82,14 +122,20 @@ class SocketVoiceServer:
                                      use_sr=use_sr,
                                      use_neural_vocoder=use_neural_vocoder,
                                      seed=seed, vocoder_mode=vocoder_mode,
-                                     device=device)
+                                     device=device, mesh=mesh)
         self.device = self._server.device
         self._S = self._server.chunk_samples            # input chunk
         self._So = self._server.chunk_out_samples       # output chunk
         self._n_drain = -(-self._server.latency_samples // self._So) + 1
         self._rt = realtime_factor
         cap = int(ring_seconds * max(cfg.dsp.in_rate, cfg.dsp.out_rate))
-        self._slots = [_Slot(cap) for _ in range(self._server.num_streams)]
+        self._slots = [_Slot(cap)
+                       for _ in range(len(self._server.local_slots))]
+        # a model split makes every step collective over the model group,
+        # whose first rank (global rank _lead) feeds the rows of all
+        mesh = self._server.mesh
+        self._group = mesh.model_group if mesh.model_parallel > 1 else None
+        self._lead = mesh.rank - mesh.model_index
         self._lock = threading.Lock()
         self.metrics = ServingMetrics()
         # the ticker runs the step on the stream current here
@@ -98,21 +144,29 @@ class SocketVoiceServer:
 
         # build the kernels and run one step before accepting traffic (a
         # claimed slot's lane is reset before its first chunk)
-        self._server.step(np.zeros((len(self._slots), self._S), np.float32))
-
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((host, port))
-        self._sock.listen(num_streams)
-        self.address = self._sock.getsockname()
+        self._server.step_local(np.zeros((len(self._slots), self._S),
+                                         np.float32))
 
         self._stop = threading.Event()
-        self._threads = [
-            threading.Thread(target=self._accept_loop, daemon=True,
-                             name="vc-accept"),
-            threading.Thread(target=self._tick_loop, daemon=True,
-                             name="vc-ticker"),
-        ]
+        self._clients = []           # (connection, its reader and writer)
+        self._sock, self.address = None, None
+        if mesh.rank != self._lead:
+            self._threads = [threading.Thread(
+                target=self._run_ticker, args=(self._follow_loop,),
+                daemon=True, name="vc-follower")]
+        else:
+            self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            self._sock.bind((host, port))
+            self._sock.listen(num_streams)
+            self.address = self._sock.getsockname()
+            self._threads = [
+                threading.Thread(target=self._accept_loop, daemon=True,
+                                 name="vc-accept"),
+                threading.Thread(target=self._run_ticker,
+                                 args=(self._tick_loop_impl,), daemon=True,
+                                 name="vc-ticker"),
+            ]
         for t in self._threads:
             t.start()
 
@@ -129,17 +183,27 @@ class SocketVoiceServer:
 
     def close(self) -> None:
         self._stop.set()
-        try:
-            # wakes the accept thread (closing alone does not on Linux)
-            self._sock.shutdown(socket.SHUT_RDWR)
-        except OSError:
-            pass
-        try:
-            self._sock.close()
-        except OSError:
-            pass
+        if self._sock is not None:
+            try:
+                # wakes the accept thread (closing alone does not on Linux)
+                self._sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                self._sock.close()
+            except OSError:
+                pass
         for t in self._threads:
             t.join(timeout=30.0)
+        # no thread of the server outlives close(): wake and join each
+        # connection's reader (in recv) and writer (in sendall)
+        for conn, *threads in self._clients:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            for t in threads:
+                t.join(timeout=5.0)
 
     def __enter__(self):
         return self
@@ -192,10 +256,14 @@ class SocketVoiceServer:
             reader = threading.Thread(target=self._conn_reader,
                                       args=(conn, i), daemon=True,
                                       name=f"vc-read-{i}")
+            writer = threading.Thread(target=self._conn_writer,
+                                      args=(conn, i), daemon=True,
+                                      name=f"vc-write-{i}")
             self._slots[i].reader = reader
+            self._clients = [c for c in self._clients if c[2].is_alive()]
+            self._clients.append((conn, reader, writer))
             reader.start()
-            threading.Thread(target=self._conn_writer, args=(conn, i),
-                             daemon=True, name=f"vc-write-{i}").start()
+            writer.start()
 
     def _conn_reader(self, conn: socket.socket, i: int) -> None:
         slot = self._slots[i]
@@ -237,6 +305,12 @@ class SocketVoiceServer:
             pass
         finally:
             try:
+                # shutdown first: it wakes this connection's reader in recv
+                # (a close from this thread would not)
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
                 conn.close()
             except OSError:
                 pass
@@ -245,14 +319,14 @@ class SocketVoiceServer:
 
     # -- device ticker --------------------------------------------------------
 
-    def _tick_loop(self) -> None:
+    def _run_ticker(self, loop) -> None:
         try:
             with torch.no_grad():
                 if self._cuda_stream is not None:
                     with torch.cuda.stream(self._cuda_stream):
-                        self._tick_loop_impl()
+                        loop()
                 else:
-                    self._tick_loop_impl()
+                    loop()
         except Exception as e:                         # noqa: BLE001
             # a dead ticker must not leave clients hanging silently:
             # stop accepting, release every stream, surface the error
@@ -261,12 +335,45 @@ class SocketVoiceServer:
             print(f"[socket_server] ticker died: {e!r}\n"
                   f"{traceback.format_exc()}", flush=True)
             self._stop.set()
-            try:
-                self._sock.close()
-            except OSError:
-                pass
+            if self._sock is not None:
+                try:
+                    self._sock.close()
+                except OSError:
+                    pass
             for s in self._slots:
                 s.done.set()
+
+    def _exchange(self, chunks=None, live=None, reset=None,
+                  stop: bool = False):
+        """The model group's rows for this tick: the first rank sends its
+        chunks, masks and whether it stops (one broadcast), every other
+        rank receives them.  Returns device tensors (chunks, live, reset)
+        and the stop flag."""
+        n, S = len(self._slots), self._S
+        if chunks is None:
+            buf = torch.empty(n * S + 2 * n + 1, device=self.device)
+        else:
+            buf = torch.from_numpy(np.concatenate(
+                [chunks.reshape(-1), live, reset, [stop]]
+            ).astype(np.float32)).to(self.device)
+        dist.broadcast(buf, src=self._lead, group=self._group)
+        return (buf[: n * S].view(n, S), buf[n * S: n * S + n] > 0,
+                buf[n * S + n: n * S + 2 * n] > 0, bool(buf[-1] > 0))
+
+    def _step(self, chunks, live, reset) -> np.ndarray:
+        if self._group is None:
+            return self._server.step_local(chunks, live=live, reset=reset)
+        c, lv, rs, _ = self._exchange(chunks, live, reset)
+        return self._server.step_device(c, lv, rs).cpu().numpy()
+
+    def _follow_loop(self) -> None:
+        """A following rank of a model group: step with the first rank's
+        rows until it stops."""
+        while True:
+            c, lv, rs, stop = self._exchange()
+            if stop:
+                return
+            self._server.step_device(c, lv, rs)
 
     def _tick_loop_impl(self) -> None:
         S = self._S
@@ -302,32 +409,26 @@ class SocketVoiceServer:
                         chunks[i] = 0.0
                         continue
                     gens[i] = s.gen
-                    if s.in_rb.available >= S:
-                        chunks[i] = s.in_rb.pop(S)
-                        live[i] = True
-                    elif s.eof:
-                        # drain: flush remaining input padded with silence,
-                        # then feed latency-draining silence chunks
-                        tailpcm = s.in_rb.pop(s.in_rb.available)
+                    chunk, underrun = take_chunk(s, S, bool(period))
+                    if chunk is None:
+                        # free-running mode: a not-ready slot is PAUSED
+                        # via the live mask, its device carry untouched
                         chunks[i] = 0.0
-                        chunks[i, :len(tailpcm)] = tailpcm
-                        if len(tailpcm) == 0:
-                            s.drain_left -= 1
-                        live[i] = True
-                    elif period:
+                        continue
+                    if underrun:
                         # realtime contract: a slow producer gets silence
-                        # fed through its stream (underrun counted) so its
-                        # clock keeps advancing
-                        chunks[i] = 0.0
-                        live[i] = True
+                        # fed through its stream so its clock advances
                         self.metrics.incr("tick_underruns")
-                    # free-running mode: not-ready slots are PAUSED via
-                    # the live mask — their device carry is untouched
+                    chunks[i] = chunk
+                    live[i] = True
             if not (live.any() or reset.any()):
                 time.sleep(0.002)
-                continue
+                if self._group is None:
+                    continue
+                # the model group's other ranks wait in the broadcast:
+                # tick anyway (the sleep bounds the spin)
             t_lat = time.perf_counter()
-            out = self._server.step(chunks, live=live, reset=reset)
+            out = self._step(chunks, live, reset)
             self.metrics.chunk_latency.record(
                 1000.0 * (time.perf_counter() - t_lat))
             for i in np.flatnonzero(live):
@@ -346,6 +447,8 @@ class SocketVoiceServer:
                 dt = time.perf_counter() - t0
                 if dt < period:
                     time.sleep(period - dt)
+        if self._group is not None:
+            self._exchange(chunks, live, reset, stop=True)   # release them
 
 
 def convert_over_socket(host: str, port: int, pcm: np.ndarray,

@@ -9,6 +9,12 @@ structure: every module loads strictly, a missing or extra key raises.
 
 Layout: ``<dir>/ckpt_<step>.pt`` with a ``latest`` pointer file; ``keep``
 bounds retention.
+
+Over several ranks (:func:`save_checkpoint_from_host0`,
+:func:`restore_checkpoint_to_all`) a checkpoint holds the whole state:
+rank 0 writes it after the model split is gathered, and on resume every
+rank takes rank 0's state, step and optimizer moments by broadcast, so no
+shared file system is needed.
 """
 
 from __future__ import annotations
@@ -18,6 +24,11 @@ import pathlib
 
 import torch
 import torch.nn as nn
+
+from realtime_yukarin_tpu_torch.parallel.multihost import (
+    broadcast_from_host0, process_count)
+from realtime_yukarin_tpu_torch.training.train_step import (
+    ensure_optimizer_state, gather_train_state)
 
 
 def _step_of(path: pathlib.Path) -> int:
@@ -100,3 +111,28 @@ def restore_checkpoint(ckpt_dir: str | pathlib.Path, template):
         setattr(template, name, _load_into(getattr(template, name),
                                            saved[name], name))
     return template, _step_of(path)
+
+
+def save_checkpoint_from_host0(ckpt_dir: str | pathlib.Path, state, step: int,
+                               mesh, keep: int = 3) -> pathlib.Path | None:
+    """Gather ``state``'s model split (collective: every rank calls this),
+    then rank 0 writes it.  Returns the path on rank 0, None elsewhere."""
+    full = gather_train_state(mesh, state)
+    if mesh.rank != 0:
+        return None
+    return save_checkpoint(ckpt_dir, full, step, keep)
+
+
+def restore_checkpoint_to_all(ckpt_dir: str | pathlib.Path, template):
+    """:func:`restore_checkpoint` on every rank (a rank that finds no
+    checkpoint keeps ``template``), then rank 0's state, step and
+    optimizer moments on all of them.  ``template`` is the whole (not yet
+    sharded) state.  Returns (state, step)."""
+    state, step = restore_checkpoint(ckpt_dir, template)
+    if process_count() > 1:
+        for name in ("opt", "d_opt"):
+            if hasattr(state, name):
+                ensure_optimizer_state(getattr(state, name))
+        state = broadcast_from_host0(state)
+        step = broadcast_from_host0(step)
+    return state, step

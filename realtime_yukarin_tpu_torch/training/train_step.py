@@ -11,14 +11,25 @@ top-level subtree, then AdamW steps, as ``optax.chain(clip_per_stage(1.0),
 optax.adamw(lr, weight_decay=1e-5))``.
 
 PyTorch's parameters are mutable, so a step updates its state in place
-and returns it.  The sharded steps of the JAX package (``make_sharded_*``)
-wait for multi-GPU training.
+and returns it.
+
+Given a :class:`~realtime_yukarin_tpu_torch.parallel.mesh.Mesh` (the
+``make_sharded_*`` steps), each rank holds its rows of the global batch
+(the concatenation of the data ranks' batches in rank order; every rank of
+a model group holds the same rows) and its slices of the weights the shard
+rule selects.  Every rank computes the global batch's loss value from
+partial sums all-reduced over the data group (``training/losses.py``);
+gradients are summed over the data group; a stage's clip norm sums its
+split leaves' squares over the model group and counts its replicated ones
+once.  AdamW, its weight decay and the GAN step's EMA act per element, so
+they run on the shards unchanged.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 
 import torch
 import torch.nn as nn
@@ -35,6 +46,9 @@ from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
 from realtime_yukarin_tpu_torch.models.voice_changer import (param_leaves,
                                                              params_to,
                                                              params_trainable)
+from realtime_yukarin_tpu_torch.parallel.mesh import (
+    Mesh, data_parallel, gather_model, gather_params, shard_params,
+    sharded_leaf_ids, sum_over_data_, sum_over_model)
 from realtime_yukarin_tpu_torch.training import losses
 
 WEIGHT_DECAY = 1e-5      # optax.adamw(lr, weight_decay=1e-5)
@@ -85,16 +99,30 @@ class GanTrainState:
     ema_params: dict               # EMA of the generator: the inference tree
 
 
+def _square_norm(gs: list[torch.Tensor], split: list[bool],
+                 mesh: Mesh | None) -> torch.Tensor:
+    """Σ x² over a subtree's whole gradient: the model shards' squares
+    summed over the model group, the replicated leaves' counted once."""
+    if not any(split):
+        return sum(torch.sum(x * x) for x in gs)
+    parts = sum(torch.sum(x * x) for x, s in zip(gs, split) if s)
+    whole = sum(torch.sum(x * x) for x, s in zip(gs, split) if not s)
+    return sum_over_model(parts, mesh) + whole
+
+
 def clip_per_stage(grads: dict[str, list[torch.Tensor]],
-                   max_norm: float = MAX_NORM
+                   max_norm: float = MAX_NORM, mesh: Mesh | None = None,
+                   split: dict[str, list[bool]] | None = None
                    ) -> dict[str, list[torch.Tensor]]:
     """Each top-level subtree's gradients scaled by min(1, max_norm /
     max(g, 1e-16)), g that subtree's global norm — so each stage's update
     norm depends only on its own gradients.  (``clip_grad_norm_`` divides
-    by norm + 1e-6 instead, so the formula is written out.)"""
+    by norm + 1e-6 instead, so the formula is written out.)  ``split``
+    marks the leaves that are model shards of ``mesh``."""
     out = {}
     for k, gs in grads.items():
-        g = torch.sqrt(sum(torch.sum(x * x) for x in gs))
+        flags = split[k] if split is not None else [False] * len(gs)
+        g = torch.sqrt(_square_norm(gs, flags, mesh))
         scale = torch.clamp(max_norm / torch.clamp(g, min=1e-16), max=1.0)
         out[k] = [x * scale for x in gs]
     return out
@@ -108,16 +136,20 @@ def make_optimizer(params: dict, lr: float = 1e-4) -> torch.optim.AdamW:
     return torch.optim.AdamW(leaves, lr=lr, weight_decay=WEIGHT_DECAY)
 
 
-def gradients(loss: torch.Tensor, params: dict
+def gradients(loss: torch.Tensor, params: dict, mesh: Mesh | None = None
               ) -> dict[str, list[torch.Tensor]]:
-    """d loss / d every leaf, grouped by top-level subtree.  A leaf the
-    loss does not read (``f0_stats``) gets a zero gradient, as under
-    ``jax.grad``, so AdamW still decays it as optax does (torch's AdamW
-    skips a parameter whose ``.grad`` is None)."""
+    """d loss / d every leaf, grouped by top-level subtree, summed over
+    ``mesh``'s data group when it splits the batch.  A leaf the loss does
+    not read (``f0_stats``) gets a zero gradient, as under ``jax.grad``,
+    so AdamW still decays it as optax does (torch's AdamW skips a
+    parameter whose ``.grad`` is None)."""
     groups = param_leaves(params)
     flat = [p for ps in groups.values() for p in ps]
     gs = torch.autograd.grad(loss, flat, allow_unused=True)
     gs = [torch.zeros_like(p) if g is None else g for p, g in zip(flat, gs)]
+    if data_parallel(mesh):
+        with torch.no_grad():
+            sum_over_data_(gs, mesh)
     out, i = {}, 0
     for k, ps in groups.items():
         out[k] = gs[i: i + len(ps)]
@@ -126,9 +158,13 @@ def gradients(loss: torch.Tensor, params: dict
 
 
 def apply_gradients(opt: torch.optim.Optimizer, params: dict,
-                    grads: dict[str, list[torch.Tensor]]) -> None:
+                    grads: dict[str, list[torch.Tensor]],
+                    mesh: Mesh | None = None) -> None:
     """clip_per_stage, then one AdamW step."""
-    clipped = clip_per_stage(grads)
+    ids = sharded_leaf_ids(params)
+    split = ({k: [id(p) in ids for p in ps]
+              for k, ps in param_leaves(params).items()} if ids else None)
+    clipped = clip_per_stage(grads, mesh=mesh, split=split)
     for k, ps in param_leaves(params).items():
         for p, g in zip(ps, clipped[k]):
             p.grad = g
@@ -136,54 +172,60 @@ def apply_gradients(opt: torch.optim.Optimizer, params: dict,
     opt.zero_grad(set_to_none=True)
 
 
-def _losses(params: dict, batch: Batch, cfg: Config):
-    """(total, metrics, predicted envelope) of the joint objective."""
+def _losses(params: dict, batch: Batch, cfg: Config,
+            mesh: Mesh | None = None):
+    """(total, metrics, predicted envelope) of the joint objective, over
+    the global batch when ``mesh`` splits it."""
     f32 = torch.float32
     # stage 1: source mc -> target mc
     mc_pred = convert_mc(params["stage1"], batch.mc_src, batch.f0_src,
                          cfg.acoustic, f32)
-    l_mc = losses.mc_l1(mc_pred, batch.mc_tgt)
+    l_mc = losses.mc_l1(mc_pred, batch.mc_tgt, mesh)
     # stage 2: decoded low-res envelope -> full target envelope
     env_low = decode_mcep(mc_pred, cfg.dsp)
     env_pred = refine_envelope(params["stage2"], env_low,
                                cfg.super_resolution, cfg.dsp, f32)
-    l_env = losses.log_env_l2(env_pred, batch.env_tgt)
+    l_env = losses.log_env_l2(env_pred, batch.env_tgt, mesh)
     # vocoders: self-vocoding against the real target waveform, with
     # ground-truth conditioning; each renders the whole batch at once
     wave_pred, _ = neural_vocode(params["vocoder"], batch.f0_voc,
                                  batch.env_voc, batch.ap_voc, batch.mc_voc,
                                  batch.noise, cfg.vocoder_nn, cfg.dsp)
-    l_stft = losses.multi_resolution_stft(wave_pred, batch.wave_voc)
+    l_stft = losses.multi_resolution_stft(wave_pred, batch.wave_voc,
+                                          mesh=mesh)
     wave_pred2, _ = waveform_vocode(params["vocoder_wave"], batch.f0_voc,
                                     batch.env_voc, batch.ap_voc,
                                     batch.mc_voc, batch.noise,
                                     cfg.vocoder_wave, cfg.dsp)
-    l_wave = losses.multi_resolution_stft(wave_pred2, batch.wave_voc)
+    l_wave = losses.multi_resolution_stft(wave_pred2, batch.wave_voc,
+                                          mesh=mesh)
     total = l_mc + l_env + 0.5 * l_stft + 0.5 * l_wave
     metrics = {"loss": total, "mc": l_mc, "env": l_env, "stft": l_stft,
                "wave": l_wave}
     return total, {k: v.detach() for k, v in metrics.items()}, env_pred
 
 
-def loss_fn(params: dict, batch: Batch, cfg: Config
-            ) -> tuple[torch.Tensor, dict]:
+def loss_fn(params: dict, batch: Batch, cfg: Config,
+            mesh: Mesh | None = None) -> tuple[torch.Tensor, dict]:
     """(total loss, {loss, mc, env, stft, wave}) of the joint objective."""
-    total, metrics, _ = _losses(params, batch, cfg)
+    total, metrics, _ = _losses(params, batch, cfg, mesh)
     return total, metrics
 
 
-def loss_and_grads(params: dict, batch: Batch, cfg: Config
+def loss_and_grads(params: dict, batch: Batch, cfg: Config,
+                   mesh: Mesh | None = None
                    ) -> tuple[dict, dict[str, list[torch.Tensor]]]:
-    """(metrics, gradients by subtree) — ``jax.value_and_grad(loss_fn)``."""
-    total, metrics = loss_fn(params, batch, cfg)
-    return metrics, gradients(total, params)
+    """(metrics, gradients by subtree) — ``jax.value_and_grad(loss_fn)``;
+    with ``mesh``, the global batch's, on every rank."""
+    total, metrics = loss_fn(params, batch, cfg, mesh)
+    return metrics, gradients(total, params, mesh)
 
 
-def make_train_step(cfg: Config):
+def make_train_step(cfg: Config, mesh: Mesh | None = None):
     """step(state, batch) -> (state, metrics), updating ``state``."""
     def train_step(state: TrainState, batch: Batch):
-        metrics, grads = loss_and_grads(state.params, batch, cfg)
-        apply_gradients(state.opt, state.params, grads)
+        metrics, grads = loss_and_grads(state.params, batch, cfg, mesh)
+        apply_gradients(state.opt, state.params, grads, mesh)
         state.step += 1
         return state, metrics
 
@@ -205,8 +247,23 @@ def _log_env(env: torch.Tensor) -> torch.Tensor:
     return torch.log(torch.clamp(env, min=1e-12))
 
 
+def gan_losses_and_grads(state: GanTrainState, batch: Batch, cfg: Config,
+                         adv_weight: float = 0.02, mesh: Mesh | None = None):
+    """(metrics, generator gradients, discriminator gradients) at the
+    state's generator and discriminator: the first half of the GAN step."""
+    disc = state.d_params
+    base, metrics, env_pred = _losses(state.params, batch, cfg, mesh)
+    l_adv = g_hinge_loss(disc(_log_env(env_pred)), mesh)
+    g_grads = gradients(base + adv_weight * l_adv, state.params, mesh)
+    ld = d_hinge_loss(disc(_log_env(batch.env_tgt)),
+                      disc(_log_env(env_pred.detach())), mesh)
+    d_grads = gradients(ld, {"params": disc}, mesh)
+    return (dict(metrics, adv=l_adv.detach(), d_loss=ld.detach()), g_grads,
+            d_grads)
+
+
 def make_gan_train_step(cfg: Config, adv_weight: float = 0.02,
-                        ema_decay: float = 0.99):
+                        ema_decay: float = 0.99, mesh: Mesh | None = None):
     """step(state, batch) -> (state, metrics) with hinge-GAN on the
     predicted envelope plus the losses of :func:`loss_fn`.
 
@@ -216,23 +273,18 @@ def make_gan_train_step(cfg: Config, adv_weight: float = 0.02,
     ``ema_decay * e + (1 - ema_decay) * p_new`` — the JAX step's order.
     Default adv_weight 0.02: the JAX package's held-out choice."""
     def train_step(state: GanTrainState, batch: Batch):
-        disc = state.d_params
-        base, metrics, env_pred = _losses(state.params, batch, cfg)
-        l_adv = g_hinge_loss(disc(_log_env(env_pred)))
-        g_grads = gradients(base + adv_weight * l_adv, state.params)
-        d_params = {"params": disc}
-        ld = d_hinge_loss(disc(_log_env(batch.env_tgt)),
-                          disc(_log_env(env_pred.detach())))
-        d_grads = gradients(ld, d_params)
-        apply_gradients(state.opt, state.params, g_grads)
-        apply_gradients(state.d_opt, d_params, d_grads)
+        metrics, g_grads, d_grads = gan_losses_and_grads(
+            state, batch, cfg, adv_weight, mesh)
+        apply_gradients(state.opt, state.params, g_grads, mesh)
+        apply_gradients(state.d_opt, {"params": state.d_params}, d_grads,
+                        mesh)
         ema = param_leaves(state.ema_params)
         with torch.no_grad():
             for k, ps in param_leaves(state.params).items():
                 for e, p in zip(ema[k], ps):
                     e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
         state.step += 1
-        return state, dict(metrics, adv=l_adv.detach(), d_loss=ld.detach())
+        return state, metrics
 
     return train_step
 
@@ -250,3 +302,98 @@ def init_gan_train_state(params: dict, d_params: nn.Module, device,
                          opt=make_optimizer(params, lr),
                          d_opt=make_optimizer({"params": disc}, d_lr),
                          step=0, ema_params=params_to(params, device))
+
+
+# ---------------------------------------------------------------------------
+# The sharded steps: the same steps over a mesh, and the states' move onto
+# and off the model split
+# ---------------------------------------------------------------------------
+
+def ensure_optimizer_state(opt: torch.optim.Optimizer) -> None:
+    """Create AdamW's state for every parameter that has none yet, as its
+    first step would (step 0, zero moments): every rank then holds the same
+    structure, which a broadcast needs, and the first step computes the
+    same update."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if not opt.state[p]:
+                opt.state[p] = {
+                    "step": torch.tensor(0.0),
+                    "exp_avg": torch.zeros_like(
+                        p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(
+                        p, memory_format=torch.preserve_format)}
+
+
+def _moved_optimizer(opt: torch.optim.Optimizer, old: dict, new: dict,
+                     convert) -> torch.optim.AdamW:
+    """An AdamW like ``opt`` (made by :func:`make_optimizer`) over
+    ``new``'s leaves, its state ``opt``'s with every moment of a leaf whose
+    shape changed passed through ``convert``."""
+    group = opt.param_groups[0]
+    out = make_optimizer(new, group["lr"])
+    olds = [p for ps in param_leaves(old).values() for p in ps]
+    news = [p for ps in param_leaves(new).values() for p in ps]
+    for p, q in zip(olds, news):
+        st = opt.state.get(p)
+        if st:
+            out.state[q] = {k: (convert(v) if q.shape != p.shape
+                                and v.shape == p.shape else v.clone())
+                            for k, v in st.items()}
+    return out
+
+
+def _move_state(state, params_fn, convert):
+    """``state`` with its generator (and EMA, discriminator) trees passed
+    through ``params_fn`` and its optimizers' moments through
+    ``convert``."""
+    params = params_fn(state.params)
+    opt = _moved_optimizer(state.opt, state.params, params, convert)
+    if isinstance(state, TrainState):
+        return TrainState(params=params, opt=opt, step=state.step)
+    d_old = {"params": state.d_params}
+    d_new = params_fn(d_old)
+    return GanTrainState(
+        params=params, d_params=d_new["params"], opt=opt,
+        d_opt=_moved_optimizer(state.d_opt, d_old, d_new, convert),
+        step=state.step, ema_params=params_fn(state.ema_params))
+
+
+def shard_train_state(mesh: Mesh, state):
+    """A TrainState / GanTrainState holding this rank's slices of the
+    weights ``mesh`` splits, and of their AdamW moments.  ``state`` itself
+    at model_parallel 1."""
+    if mesh.model_parallel == 1:
+        return state
+
+    def part(v):
+        n = v.shape[0] // mesh.model_parallel
+        return v[mesh.model_index * n: (mesh.model_index + 1) * n].clone()
+    return _move_state(state, functools.partial(shard_params, mesh), part)
+
+
+def gather_train_state(mesh: Mesh, state):
+    """The whole state from a sharded one (collective over the model
+    group): what a checkpoint holds.  ``state`` itself at model_parallel
+    1."""
+    if mesh.model_parallel == 1:
+        return state
+    return _move_state(state, functools.partial(gather_params, mesh),
+                       lambda v: gather_model(v, mesh, dim=0))
+
+
+def make_sharded_train_step(cfg: Config, mesh: Mesh):
+    """(step, shard_state): the joint step over ``mesh`` (each rank passes
+    its local rows) and the move of an unsplit TrainState onto the model
+    split.  The counterpart of the JAX package's ``make_sharded_train_step``,
+    whose third value (``shard_batch``) has no work here: a rank's batch is
+    already its shard."""
+    return (make_train_step(cfg, mesh),
+            functools.partial(shard_train_state, mesh))
+
+
+def make_sharded_gan_step(cfg: Config, mesh: Mesh, adv_weight: float = 0.02,
+                          ema_decay: float = 0.99):
+    """(step, shard_state) for the GAN step over ``mesh``."""
+    return (make_gan_train_step(cfg, adv_weight, ema_decay, mesh),
+            functools.partial(shard_train_state, mesh))

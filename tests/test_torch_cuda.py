@@ -243,7 +243,7 @@ def test_batched_server_on_the_card(device):
     lane bit for bit, a reset lane, one launch of each forward kernel per
     step at R = 1280, no host sync in ``step_device`` (chip_smoke.py
     phase 12; raises on any failure)."""
-    launches = chip_smoke.batched_phase(Config())
+    launches, _, _ = chip_smoke.batched_phase(Config())
     assert all(launches[k] == chip_smoke.BATCH_STEPS
                for k in chip_smoke.FORWARD_KERNELS)
 

@@ -472,28 +472,62 @@ def test_cli_train_synthetic_writes_npz_jax_loads(setup, tmp_path, objective,
         np.testing.assert_array_equal(v, flat[k])
 
 
+LAUNCH_ENV = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES",
+              "JAX_PROCESS_ID")
+
+
 @pytest.mark.parametrize("argv,names", [
     (["--synthetic", "--finetune_converted", "5"], "--prepared_dir"),
-    (["--synthetic", "--model_parallel", "2"], "ROADMAP.md"),
-    (["--synthetic", "--coordinator_address", "host:1234"], "ROADMAP.md"),
-    (["--synthetic", "--num_processes", "2"], "ROADMAP.md"),
-    (["--synthetic", "--process_id", "0"], "ROADMAP.md"),
+    (["--synthetic", "--model_parallel", "2"],
+     "1 ranks not divisible by model_parallel=2"),
+    (["--synthetic", "--coordinator_address", "127.0.0.1:29500",
+      "--num_processes", "3", "--process_id", "0", "--model_parallel", "2"],
+     "3 ranks not divisible by model_parallel=2"),
     (["--steps", "2"], "--prepared_dir or --synthetic"),
     (["--synthetic", "--export_params", "p.msgpack"], ".npz"),
 ])
 def test_cli_rejects_what_is_not_ported_right_after_parsing(argv, names,
                                                             capsys,
                                                             monkeypatch):
-    """Refused by the parser, before any model is built or a device
-    touched: the multi-GPU flags name the ROADMAP item that brings them,
-    a bad combination names what it lacks."""
+    """Refused by the parser, before any model is built, a process group
+    joined or a device touched: a bad combination names what it lacks, a
+    --model_parallel that does not divide the ranks the mesh's error."""
     def no_init(*a, **k):
         raise AssertionError("reached the model set-up")
     monkeypatch.setattr(t_cli, "init_params", no_init)
+    monkeypatch.setattr(t_cli, "init_multihost", no_init)
+    for name in LAUNCH_ENV:
+        monkeypatch.delenv(name, raising=False)
     with pytest.raises(SystemExit) as exc:
         t_cli.main(argv)
     assert exc.value.code == 2
     assert names in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv,env,world", [
+    (["--synthetic", "--coordinator_address", "127.0.0.1:29500",
+      "--num_processes", "2", "--process_id", "1"], {}, 2),
+    (["--synthetic", "--coordinator_address", "127.0.0.1:29500",
+      "--num_processes", "4", "--process_id", "3", "--model_parallel", "2"],
+     {}, 4),
+    (["--synthetic", "--model_parallel", "2"],
+     {"JAX_COORDINATOR_ADDRESS": "127.0.0.1:29500", "JAX_NUM_PROCESSES": "2",
+      "JAX_PROCESS_ID": "0"}, 2),
+    (["--synthetic", "--num_processes", "1", "--process_id", "0",
+      "--backend", "gloo"], {}, 1),
+])
+def test_cli_accepts_the_multi_process_flags_at_parse_time(argv, env, world,
+                                                           monkeypatch):
+    """The four launch flags (or the JAX package's environment names)
+    parse, with a --model_parallel that divides the ranks they name (the
+    run itself is tests/test_torch_multihost_train.py's)."""
+    for name in LAUNCH_ENV:
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    args = t_cli.parse_args(argv)
+    assert t_cli.launch_world(args) == world
+    assert world % args.model_parallel == 0
 
 
 @pytest.mark.parametrize("argv", [
