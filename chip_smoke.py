@@ -116,8 +116,28 @@ non-zero):
    serving it on the same global slot (a server laid out at that rank's
    slots, so its steps have the rank's width); every shape the ranks gave a
    kernel must be one phase 3 held;
-19. the kernels line: one JSON object with every kernel's numbers;
-20. last line: ``{"ok": true, "device": {...}}``.
+19. the captured programs (``streaming/program.py``): (a) replay equals
+   eager bit for bit (``torch.equal`` on every output and every carry
+   leaf): 32 steps of ``VoiceChangerStream`` in dsp, ddsp and wave, a
+   48 kHz in / out client (bf16) and dsp in float32, each against the
+   ``streaming_step`` loop from the same init carry; ``BatchedServer`` at
+   64 lanes over phase 12's schedule against ``make_batched_step``'s step
+   (and an output held across the next step unchanged); ``offline_convert``
+   of 3 s in each mode, called twice, against ``offline_convert_eager``;
+   (b) per program: warm-up plus capture time, pool bytes, each forward
+   kernel's launches per replay (exactly 1, also counted over 3
+   replays); (c) eager and captured side by side in bf16: the stream
+   step's p50 / p99 per mode with the GPU kernels per replay and per eager
+   step (``torch.profiler``), the batched step at N = 1, 8, 64 (p50 / p99,
+   aggregate x realtime, device busy by the profiler where it lists a
+   replay's kernels, else by CUDA events around the replay, idle share,
+   host launch and copy calls per step), offline 3 s (eager, the first
+   call with its capture, a replay);
+20. the kernels line: one JSON object with every kernel's numbers;
+21. last line: ``{"ok": true, "device": {...}}``.
+
+Phases 4, 8-10 and 12-16 (and 18's serving) run the captured programs:
+their launch counts come from the replay accounting of ``ops/cuda.py``.
 
 Exits non-zero without a result when CUDA is not available or the port's
 package is missing.  Imports nothing of JAX.
@@ -245,6 +265,15 @@ MH_SOCKET_STREAMS, MH_SOCKET_SECONDS = 8, 1.0
 MH_SOCKET_ROWS = 20 * MH_SOCKET_STREAMS // MH_RANKS
 MH_TIMEOUT_S = 300          # one worker run, start-up included
 MH_GROUP_TIMEOUT_S = 120    # a collective that waits longer raises
+# Phase 19: the captured programs.  Streams (vocoder mode, compute dtype,
+# client rate in and out or None for 24 kHz) held bit for bit to the eager
+# step over CAPTURE_STEPS steps; the first four are also timed in bf16.
+# Each program replayed CAPTURE_COUNT more times to count its launches.
+CAPTURE_STEPS, CAPTURE_COUNT = 32, 3
+CAPTURE_STREAMS = (("dsp", "bfloat16", None), ("ddsp", "bfloat16", None),
+                   ("wave", "bfloat16", None),
+                   ("dsp", "bfloat16", CLIENT_RATE),
+                   ("dsp", "float32", None))
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -953,21 +982,32 @@ def lane_signals(n: int, steps: int, fs: int, S: int) -> np.ndarray:
 
 
 def record_shapes() -> tuple[dict, Callable[[], None]]:
-    """Wrap each kernel's launch to record the shape it was given
-    (``launch_shape``; the launch still counts once); returns
-    ({name: [shape, ...]}, undo)."""
+    """Wrap each kernel's count to record the shape it was given
+    (``launch_shape``; the launch still counts once): an eager launch, or
+    a launch a captured graph replays (``ops/cuda.py``); returns ({name:
+    [shape, ...]}, undo)."""
     from realtime_yukarin_tpu_torch.ops import cuda
     shapes = {k.name: [] for k in cuda.KERNELS}
     for k in cuda.KERNELS:
-        def launch(*args, _k=k):
+        def count(args, _k=k):
             shapes[_k.name].append(launch_shape(_k.name, args))
-            type(_k).launch(_k, *args)
-        k.launch = launch
+            type(_k).count(_k, args)
+        k.count = count
 
     def undo():
         for k in cuda.KERNELS:
-            del k.launch
+            del k.count
     return shapes, undo
+
+
+def lane_masks(N: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Phase 12's (live, reset) masks [N] at step ``k``: PAUSED_LANE paused
+    over PAUSE_STEPS, RESET_LANE reset at RESET_STEP."""
+    live = np.ones(N, bool)
+    live[PAUSED_LANE] = not PAUSE_STEPS[0] <= k <= PAUSE_STEPS[1]
+    reset = np.zeros(N, bool)
+    reset[RESET_LANE] = k == RESET_STEP
+    return live, reset
 
 
 def single_run(params, cfg, key, chunks: np.ndarray):
@@ -1017,10 +1057,7 @@ def batched_phase(cfg) -> dict:
     shapes, undo = record_shapes()
     try:
         for k in range(steps):
-            live = np.ones(N, bool)
-            live[PAUSED_LANE] = not PAUSE_STEPS[0] <= k <= PAUSE_STEPS[1]
-            reset = np.zeros(N, bool)
-            reset[RESET_LANE] = k == RESET_STEP
+            live, reset = lane_masks(N, k)
             if k == PAUSE_STEPS[0]:
                 before = [t.clone() for t in
                           tree_leaves(server.lane_carry(PAUSED_LANE))]
@@ -1088,15 +1125,22 @@ def batched_phase(cfg) -> dict:
 # a record_function span's name ("Optimizer.step#AdamW.step"); kernel names
 # carry templates, scopes and parentheses
 ANNOTATION = re.compile(r"^[\w.]+#[\w.]+$")
+# the host's calls that put work on the device: kernel and graph launches,
+# copies, fills
+LAUNCH_API = re.compile(r"^cu(da)?(LaunchKernel\w*|GraphLaunch|Memcpy\w*|"
+                        r"Memset\w*)$")
 
 
 def profile_stats(fn, n: int) -> dict:
     """``torch.profiler`` over ``n`` calls of ``fn`` (ending in a sync):
     host ms per call, device busy ms per call (every GPU kernel and copy
     summed; one stream, so they do not overlap), idle share, GPU launches
-    per call, each port kernel's (device us per launch, launches per call)
-    and {GPU event name: [device us, ...]}.  The GPU-side spans of user
-    annotations overlap the kernels they contain and are left out."""
+    per call, the host's launch, copy and fill calls per call
+    (LAUNCH_API), each port kernel's (device us per launch, launches per
+    call) and {GPU event name: [device us, ...]}.  The GPU-side spans of
+    user annotations overlap the kernels they contain and are left out.
+    The kernels of a replayed CUDA graph count where CUPTI lists them one
+    by one (``replay_device`` says whether it did)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1124,9 +1168,13 @@ def profile_stats(fn, n: int) -> dict:
              if any(f"{k.name}_kernel{c}" in name for c in "<(")
              for us in ts]
         port[k.name] = (float(np.mean(t)) if t else None, len(t) / n)
+    host_launches = sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CPU
+                        and LAUNCH_API.match(e.name))
     return dict(wall_ms=wall * 1e3 / n, busy_ms=busy / n,
                 idle=(1.0 - busy / (wall * 1e3)) if events else None,
-                gpu_launches=len(events) / n, port=port, by_name=by_name)
+                gpu_launches=len(events) / n,
+                host_launches=host_launches / n, port=port, by_name=by_name)
 
 
 def throughput_phase(cfg) -> dict:
@@ -1623,7 +1671,15 @@ def _distance(doc, ref, path="") -> list[str]:
 
 def quality_phase(root, dev) -> dict:
     """Phase 17 (c): tools/torch_quality.py's recipe on the card, gated
-    with the JAX package's held-out gates.  Returns the launches."""
+    with the JAX package's held-out gates.  Returns the launches.
+
+    The recipe is deterministic on the CPU; on the card PyTorch's default
+    algorithms (atomics in some backward passes) make the wave decoder's
+    training part between runs (its fine-tune gain 0.0039-0.0264 over six
+    runs on an H100 80GB HBM3, against the gate's 0.004; PERF.md), so the
+    recipe runs here with deterministic algorithms
+    (``torch.use_deterministic_algorithms``, the flags put back after
+    it)."""
     import pathlib
     import torch
     from realtime_yukarin_tpu_torch.ops import cuda
@@ -1633,10 +1689,20 @@ def quality_phase(root, dev) -> dict:
 
     cuda.reset_counts()
     t0 = time.perf_counter()
-    doc = tq.run_quality(
-        dev, QUALITY_STEPS, QUALITY_FINETUNE, pathlib.Path(root) / "quality",
-        log=lambda m: print(m.replace("[quality]", "[quality] recipe:")))
-    sync(dev)
+    flags = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        doc = tq.run_quality(
+            dev, QUALITY_STEPS, QUALITY_FINETUNE,
+            pathlib.Path(root) / "quality",
+            log=lambda m: print(m.replace("[quality]", "[quality] recipe:")))
+        sync(dev)
+    finally:
+        torch.use_deterministic_algorithms(flags[0], warn_only=flags[1])
+        torch.backends.cudnn.deterministic = flags[2]
     wall = time.perf_counter() - t0
     launches = launch_counts()
     print(json.dumps(doc))
@@ -1714,10 +1780,7 @@ def mh_serving(cfg, dev) -> dict:
     chunks = x.reshape(hi - lo, steps, S).transpose(1, 0, 2)
     outs, voicing = [], []
     for k in range(steps):
-        live = np.ones(N, bool)
-        live[PAUSED_LANE] = not PAUSE_STEPS[0] <= k <= PAUSE_STEPS[1]
-        reset = np.zeros(N, bool)
-        reset[RESET_LANE] = k == RESET_STEP
+        live, reset = lane_masks(N, k)
         outs.append(server.step_local(chunks[k], live=live[lo:hi],
                                       reset=reset[lo:hi]))
         voicing.append(torch.stack([
@@ -2180,6 +2243,375 @@ def multihost_phase(cfg, dev, checked: dict[str, set], batched_out,
             for part in ("serve", "train") if f"{part}_launches" in rec}
 
 
+# -- the captured programs (phase 19) ---------------------------------------
+
+def leaves_equal(a, b) -> bool:
+    """Whether two carries hold the same tensors bit for bit."""
+    import torch
+    from realtime_yukarin_tpu_torch.streaming.state import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def rate_config(cfg, rate: int | None):
+    """``cfg`` with a ``rate`` Hz client in and out (None: unchanged)."""
+    if rate is None:
+        return cfg
+    return dataclasses.replace(cfg, dsp=dataclasses.replace(
+        cfg.dsp, input_rate=rate, output_rate=rate))
+
+
+def stream_replay_vs_eager(params, cfg, mode: str, steps: int, dev) -> dict:
+    """A VoiceChangerStream (its captured program on CUDA) against the
+    ``streaming_step`` loop from the same init carry on the same chunks:
+    ``torch.equal`` on each step's output and every carry leaf.  Returns
+    {"mismatched": [step, ...], "program": the stream's program}."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        init_stream, noise_key_from_seed, streaming_step)
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+
+    stream = VoiceChangerStream(params, cfg, seed=SEED, vocoder_mode=mode,
+                                device=dev)
+    p = params_to(params, dev)
+    with torch.no_grad():
+        carry, _ = init_stream(p, cfg, vocoder_mode=mode, device=dev)
+    key = torch.tensor(noise_key_from_seed(SEED), dtype=torch.int64,
+                       device=dev)
+    S, fs = stream.chunk_samples, cfg.dsp.in_rate
+    x = test_signal(steps * S / fs + 0.01, fs, SEED)
+    mismatched = []
+    for k in range(steps):
+        c = torch.from_numpy(x[k * S: (k + 1) * S]).to(dev)
+        y = stream.step_device(c)
+        with torch.no_grad():
+            y_ref, carry = streaming_step(p, carry, c, key, cfg,
+                                          vocoder_mode=mode)
+        if not (torch.equal(y, y_ref) and leaves_equal(stream._carry,
+                                                       carry)):
+            mismatched.append(k)
+    return {"mismatched": mismatched, "program": stream.program}
+
+
+def batched_replay_vs_eager(params, cfg, N: int, steps: int, dev) -> dict:
+    """A BatchedServer at N lanes (its captured program on CUDA) against
+    ``make_batched_step``'s step from the same carries over phase 12's
+    schedule (``lane_masks``), both fed device tensors: ``torch.equal`` on
+    each step's output and every carry leaf; and an output held across
+    the next step keeps its value.  Returns {"mismatched": [...],
+    "held": bool, "program": the server's program}."""
+    import torch
+    from realtime_yukarin_tpu_torch.parallel.serving import (
+        BatchedServer, make_batched_step)
+    from realtime_yukarin_tpu_torch.streaming.state import tree_map
+
+    server = BatchedServer(params, cfg, num_streams=N, seed=SEED,
+                           device=dev)
+    step = make_batched_step(cfg)
+    init = server._init_carry
+    carries = tree_map(lambda x: x.expand(N, *x.shape).clone(), init)
+    S = server.chunk_samples
+    x = lane_signals(N, LANE_STEPS, cfg.dsp.in_rate, S)     # phase 12's
+    chunks = x[:, : steps * S].reshape(N, steps, S).transpose(1, 0, 2)
+    mismatched, held = [], True
+    for k in range(steps):
+        live, reset = lane_masks(N, k)
+        c, lv, rs = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in (chunks[k], live, reset))
+        y = server.step_device(c, lv, rs)
+        if k:
+            held = held and torch.equal(prev, prev_ref)
+        with torch.no_grad():
+            y_ref, carries = step(server._params, init, carries, c,
+                                  server._keys, lv, rs)
+        if not (torch.equal(y, y_ref) and leaves_equal(server._carries,
+                                                       carries)):
+            mismatched.append(k)
+        prev, prev_ref = y, y_ref.clone()
+    return {"mismatched": mismatched, "held": held,
+            "program": server.program}
+
+
+def offline_replay_vs_eager(params, cfg, x, dev) -> dict:
+    """``offline_convert`` (its cached program) in each vocoder mode,
+    called twice (``x`` with seed SEED's noise, then 0.5 x with SEED + 1's),
+    each call against ``offline_convert_eager``; the first call's output
+    is checked again after the second.  Returns {mode: {"equal": bool,
+    "program": the cached program}}."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+    from realtime_yukarin_tpu_torch.pipeline import (cached_programs,
+                                                     offline_convert,
+                                                     offline_convert_eager)
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        noise_key_from_seed)
+
+    p = params_to(params, dev)
+    F = len(x) // cfg.dsp.hop
+    out = {}
+    for mode in VOCODER_MODES:
+        calls = [(x, noise_key_from_seed(SEED)),
+                 (0.5 * x, noise_key_from_seed(SEED + 1))]
+        ys = [offline_convert(p, w, key, cfg, F, vocoder_mode=mode,
+                              device=dev) for w, key in calls]
+        refs = [offline_convert_eager(p, w, key, cfg, F, vocoder_mode=mode,
+                                      device=dev) for w, key in calls]
+        out[mode] = {"equal": all(torch.equal(y, r)
+                                  for y, r in zip(ys, refs)),
+                     "program": cached_programs()[-1]}
+    return out
+
+
+def lists_replays(st: dict) -> bool:
+    """Whether a ``profile_stats`` window lists a replayed graph's kernels
+    one by one (CUPTI does with recent CUDA releases): the port's forward
+    kernels, which every step launches, appear by name."""
+    return all(st["port"][k][1] >= 1 for k in FORWARD_KERNELS)
+
+
+def device_busy(fn, program, n: int) -> tuple[dict, float, str]:
+    """``profile_stats(fn, n)``, and the device busy ms per call with how
+    it was measured: the profiler's GPU event sum where it lists the
+    replay's kernels (or nothing is replayed), else CUDA events around
+    ``n`` replays of ``program`` (``replay_ms``)."""
+    st = profile_stats(fn, n)
+    if program is None or not program.captured or lists_replays(st):
+        return st, st["busy_ms"], "torch.profiler"
+    return st, replay_ms(program, n), "CUDA events around the replay"
+
+
+def wall_ms(fn, n: int) -> tuple[float, float]:
+    """p50 / p99 host wall time of ``fn`` in ms over ``n`` calls (each
+    ends in a device sync), after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    return (float(np.percentile(walls, 50)) * 1e3,
+            float(np.percentile(walls, 99)) * 1e3)
+
+
+def replay_ms(program, n: int) -> float:
+    """Device ms per call of ``program``: CUDA events right before and
+    after each of ``n`` calls, the device idle around each (a replay's
+    time on the device, the gaps between its kernels included)."""
+    import torch
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        program()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.mean(times))
+
+
+def captured_phase(cfg, dev="cuda") -> dict:
+    """Phase 19: every captured program against its eager body, bit for
+    bit, then eager and captured side by side.  (a) CAPTURE_STEPS steps of
+    VoiceChangerStream in each of CAPTURE_STREAMS against the
+    ``streaming_step`` loop; BatchedServer at BATCH_STREAMS lanes over
+    phase 12's schedule against ``make_batched_step``'s step;
+    ``offline_convert`` of SECONDS in each mode, twice, against
+    ``offline_convert_eager``.  (b) per program: warm-up plus capture time,
+    pool bytes, GPU kernels per replay, each forward kernel's launches per
+    replay (exactly 1, also counted over CAPTURE_COUNT replays).  (c)
+    bf16: the stream step's p50 / p99 per mode, the batched step at each of
+    SERVE_STREAMS (p50 / p99, aggregate x realtime, device busy, idle
+    share, host launch calls per step), offline (eager, the first call
+    with its capture, a replay).  Returns {label: record} for the kernels
+    line."""
+    import torch
+    from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.serving import (
+        BatchedServer, make_batched_step)
+    from realtime_yukarin_tpu_torch.pipeline import (cached_programs,
+                                                     offline_convert,
+                                                     offline_convert_eager)
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        init_stream, noise_key_from_seed, streaming_step)
+    from realtime_yukarin_tpu_torch.streaming.state import tree_map
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+
+    dev = torch.device(dev)
+    params = vocoder_params(cfg)
+    fails, programs = [], {}
+    # (a) replay == eager, bit for bit
+    for mode, dtype, rate in CAPTURE_STREAMS:
+        c = rate_config(dataclasses.replace(cfg, compute_dtype=dtype), rate)
+        label = f"stream {mode} {dtype}" + (f" {rate // 1000} kHz"
+                                            if rate else "")
+        r = stream_replay_vs_eager(params, c, mode, CAPTURE_STEPS, dev)
+        programs[label] = r["program"]
+        print(f"[captured] {label}: {CAPTURE_STEPS} replays vs the "
+              f"streaming_step loop, bit-equal={not r['mismatched']}"
+              + (f" (steps {r['mismatched']} differ)"
+                 if r["mismatched"] else ""))
+        if r["mismatched"]:
+            fails.append(label)
+    r = batched_replay_vs_eager(params, cfg, BATCH_STREAMS, BATCH_STEPS, dev)
+    label = f"batched {BATCH_STREAMS} lanes"
+    programs[label] = r["program"]
+    print(f"[captured] {label} (lane {PAUSED_LANE} paused for steps "
+          f"{PAUSE_STEPS}, lane {RESET_LANE} reset at step {RESET_STEP}): "
+          f"{BATCH_STEPS} replays vs make_batched_step's step, bit-equal="
+          f"{not r['mismatched']}, outputs held across the next step "
+          f"unchanged={r['held']}")
+    if r["mismatched"] or not r["held"]:
+        fails.append(label)
+    x = test_signal(SECONDS, cfg.dsp.sample_rate, SEED)
+    for mode, r in offline_replay_vs_eager(params, cfg, x, dev).items():
+        label = f"offline {mode}"
+        programs[label] = r["program"]
+        print(f"[captured] {label} ({len(x) // cfg.dsp.hop} frames): two "
+              f"calls vs offline_convert_eager, bit-equal={r['equal']}")
+        if not r["equal"]:
+            fails.append(label)
+    # (b) per program
+    for label, prog in programs.items():
+        fwd = {k: prog.kernel_launches.get(k, 0) for k in FORWARD_KERNELS}
+        st = profile_stats(prog, PROFILE_STEPS)
+        held = (f"{st['gpu_launches']:.1f}" if lists_replays(st)
+                else "not measured (the profiler lists none)")
+        print(f"[captured] {label}: captured={prog.captured}, warm-up + "
+              f"capture {prog.capture_s:.3f} s, pool "
+              f"{prog.pool_bytes / 2 ** 20:.1f} MiB, GPU kernels and copies "
+              f"per call (the replay and the output's clone) {held}, "
+              f"forward kernels per replay {fwd}")
+        cuda.reset_counts()
+        for _ in range(CAPTURE_COUNT):
+            prog()
+        counted = {k: launch_counts()[k] for k in FORWARD_KERNELS}
+        if (not prog.captured or set(fwd.values()) != {1}
+                or set(counted.values()) != {CAPTURE_COUNT}):
+            fails.append(f"{label}: launches {fwd}, {counted} over "
+                         f"{CAPTURE_COUNT} replays")
+    # (c) eager and captured side by side, bf16
+    record = {}
+    p = params_to(params, dev)
+    for mode, _, rate in CAPTURE_STREAMS[:4]:
+        c = rate_config(cfg, rate)
+        label = f"stream {mode}" + (f" {rate // 1000} kHz" if rate else "")
+        stream = VoiceChangerStream(params, c, seed=SEED, vocoder_mode=mode,
+                                    device=dev)
+        with torch.no_grad():
+            state = {"carry": init_stream(p, c, vocoder_mode=mode,
+                                          device=dev)[0]}
+        key = torch.tensor(noise_key_from_seed(SEED), dtype=torch.int64,
+                           device=dev)
+        chunk = test_signal(0.1, c.dsp.in_rate, SEED)[
+            : stream.chunk_samples]
+
+        def eager(c=c, mode=mode, state=state, key=key, chunk=chunk):
+            with torch.no_grad():
+                y, state["carry"] = streaming_step(
+                    p, state["carry"], torch.from_numpy(chunk).to(dev), key,
+                    c, vocoder_mode=mode)
+            return y.cpu()
+
+        def replay(stream=stream, chunk=chunk):
+            return stream.step_device(torch.from_numpy(chunk)).cpu()
+
+        st = profile_stats(replay, PROFILE_STEPS)
+        rep, how = st["gpu_launches"], "torch.profiler"
+        if not lists_replays(st):
+            rep, how = float("nan"), "not measured: the profiler lists none"
+        eag = profile_stats(eager, PROFILE_STEPS)["gpu_launches"]
+        e50, e99 = wall_ms(eager, SERVE_STEPS)
+        r50, r99 = wall_ms(replay, SERVE_STEPS)
+        record[label] = dict(eager_p50_ms=e50, eager_p99_ms=e99,
+                             captured_p50_ms=r50, captured_p99_ms=r99,
+                             graph_kernels=rep, eager_gpu_launches=eag)
+        print(f"[captured] {label} (bf16): step p50 / p99 eager {e50:.3f} / "
+              f"{e99:.3f} ms, captured {r50:.3f} / {r99:.3f} ms; GPU kernels "
+              f"and copies per replay {rep:.1f} ({how}), per eager step "
+              f"{eag:.1f}")
+    chunk_s = cfg.streaming.chunk_samples(cfg.dsp) / cfg.dsp.sample_rate
+    step = make_batched_step(cfg)
+    for N in SERVE_STREAMS:
+        server = BatchedServer(params, cfg, num_streams=N, seed=SEED,
+                               device=dev)
+        S = server.chunk_samples
+        xs = np.ascontiguousarray(lane_signals(
+            BATCH_STREAMS, LANE_STEPS, cfg.dsp.in_rate, S)[:N, :S])
+        carries = {"c": tree_map(lambda t: t.expand(N, *t.shape).clone(),
+                                 server._init_carry)}
+        ones = torch.ones(N, dtype=torch.bool, device=dev)
+        zeros = torch.zeros(N, dtype=torch.bool, device=dev)
+
+        def eager(server=server, xs=xs, carries=carries, ones=ones,
+                  zeros=zeros):
+            with torch.no_grad():
+                y, carries["c"] = step(server._params, server._init_carry,
+                                       carries["c"],
+                                       torch.from_numpy(xs).to(dev),
+                                       server._keys, ones, zeros)
+            return y.cpu()
+
+        def replay(server=server, xs=xs):
+            return server.step(xs)
+
+        rec = {}
+        for how, fn in (("eager", eager), ("captured", replay)):
+            p50, p99 = wall_ms(fn, SERVE_STEPS)
+            st, busy, method = device_busy(
+                fn, server.program if how == "captured" else None,
+                PROFILE_STEPS)
+            rec[how] = dict(p50_ms=p50, p99_ms=p99,
+                            x_realtime=N * chunk_s * 1e3 / p50, busy_ms=busy,
+                            idle=1.0 - busy / st["wall_ms"],
+                            idle_at_p50=1.0 - busy / p50,
+                            busy_method=method,
+                            gpu_launches=st["gpu_launches"],
+                            host_launches=st["host_launches"])
+            print(f"[captured] batched N={N} {how} (bf16): step p50 / p99 "
+                  f"{p50:.3f} / {p99:.3f} ms, aggregate "
+                  f"x{rec[how]['x_realtime']:.1f} realtime, device busy "
+                  f"{busy:.3f} ms ({method}), idle share "
+                  f"{rec[how]['idle']:.3f} in the profiled window "
+                  f"({st['wall_ms']:.3f} ms per step), "
+                  f"{rec[how]['idle_at_p50']:.3f} at the unprofiled p50, "
+                  f"GPU kernels and copies per step "
+                  f"{st['gpu_launches']:.1f}, host launch/copy calls per "
+                  f"step {st['host_launches']:.1f}")
+        record[f"batched {N}"] = rec
+        del server
+    F = len(x) // cfg.dsp.hop
+    key = noise_key_from_seed(SEED)
+    for mode in VOCODER_MODES:
+        p_new = params_to(params, dev)       # new tensors: a new program
+        t0 = time.perf_counter()
+        offline_convert(p_new, x, key, cfg, F, vocoder_mode=mode,
+                        device=dev).cpu()
+        first = (time.perf_counter() - t0) * 1e3
+        capture = cached_programs()[-1].capture_s * 1e3
+        eager_ms = wall_ms(lambda: offline_convert_eager(
+            p_new, x, key, cfg, F, vocoder_mode=mode, device=dev).cpu(),
+            5)[0]
+        replay_ms = wall_ms(lambda: offline_convert(
+            p_new, x, key, cfg, F, vocoder_mode=mode, device=dev).cpu(),
+            5)[0]
+        record[f"offline {mode}"] = dict(eager_ms=eager_ms,
+                                         first_call_ms=first,
+                                         capture_ms=capture,
+                                         replay_ms=replay_ms)
+        print(f"[captured] offline {mode} {SECONDS:g} s (bf16): eager "
+              f"{eager_ms:.3f} ms, first call {first:.1f} ms (capture "
+              f"{capture:.1f} ms of it), replay {replay_ms:.3f} ms "
+              f"(p50 of 5)")
+    if fails:
+        raise AssertionError(f"captured programs: {fails}")
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -2470,10 +2902,15 @@ def main() -> int:
                                          batched_voicing)
     print(f"[multihost] phase seconds {time.perf_counter() - t0:.1f}")
 
-    # 19. kernels line (launches: every path's run — the default stream,
+    # 19. the captured programs: replay == eager, and side by side
+    t0 = time.perf_counter()
+    captured_phase(cfg)
+    print(f"[captured] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 20. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,
     # the batched server, corpus preparation, corpus training, the quality
-    # recipe, and the ranks' serving and training), 20. result line
+    # recipe, and the ranks' serving and training), 21. result line
     paths = [launches, train_launches, *offline_launches.values(),
              *stream_launches.values(), batched_launches,
              *corpus_launches.values(), *multihost_launches.values()]

@@ -148,6 +148,7 @@ def main(argv: list[str] | None = None) -> None:
             print(f"[serve] socket server on {srv.address}, "
                   f"{len(srv._slots)} local stream slots on {device} "
                   f"(host {rank}/{world})", file=sys.stderr)
+            print(f"[serve] {srv.program.summary()}", file=sys.stderr)
             t_end = (None if args.duration is None
                      else time.monotonic() + args.duration)
             try:
@@ -177,6 +178,7 @@ def main(argv: list[str] | None = None) -> None:
                   f"@{cfg.dsp.out_rate} Hz, algorithmic latency="
                   f"{stream.latency_samples} samples; Ctrl-C to stop",
                   file=sys.stderr)
+            print(f"[serve] {stream.program.summary()}", file=sys.stderr)
             session.run(duration=args.duration)
             print(f"[serve] {stream.metrics.to_json()}", file=sys.stderr)
         return
@@ -200,6 +202,7 @@ def main(argv: list[str] | None = None) -> None:
           f"{stream.latency_samples} samples "
           f"({1000 * stream.latency_samples / fs_out:.0f} ms)",
           file=sys.stderr)
+    print(f"[serve] {stream.program.summary()}", file=sys.stderr)
 
     def push(chunk: np.ndarray) -> None:
         t0 = time.perf_counter()
@@ -250,6 +253,7 @@ def _serve_pipelined(args, cfg: Config, params: dict) -> None:
         print(f"[serve] pipelined depth={args.depth} chunk={S} samples "
               f"({1000 * S / fs:.0f} ms), algorithmic latency="
               f"{stream.latency_samples} samples", file=sys.stderr)
+        print(f"[serve] {stream.program.summary()}", file=sys.stderr)
         outputs: list[np.ndarray] = []
 
         def drain(n: int | None = None) -> None:

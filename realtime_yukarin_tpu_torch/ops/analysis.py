@@ -178,7 +178,9 @@ def power_spectrum_fused(frames: torch.Tensor, n: int) -> torch.Tensor:
         raise ValueError("power_spectrum_fused: frames must be 8-byte "
                          "aligned (the kernel copies them 8 bytes at a "
                          "time)")
-    (basis,) = _power_consts(n, str(dev)).ptrs
+    consts = _power_consts(n, str(dev))
+    cuda.hold(*consts.tensors)
+    (basis,) = consts.ptrs
     out = torch.empty((R, K), dtype=torch.float32, device=dev)
     cuda.POWER_SPECTRUM.launch(frames.data_ptr(), basis, out.data_ptr(),
                                R, n, K, plan.row_tile, CLUSTER, DEPTH,
@@ -210,7 +212,9 @@ def envelope_cepstrum_fused(P: torch.Tensor, lift_half: torch.Tensor,
         raise ValueError(
             f"envelope_cepstrum_fused: no kernel for device {dev}")
     plan = cepstrum_plan(R, K)
-    (D,) = _cepstrum_consts(n, plan.width, str(dev)).ptrs
+    consts = _cepstrum_consts(n, plan.width, str(dev))
+    cuda.hold(*consts.tensors)
+    (D,) = consts.ptrs
     out = torch.empty((R, K), dtype=torch.float32, device=dev)
     cuda.ENVELOPE_CEPSTRUM.launch(P.data_ptr(), lift_half.data_ptr(), D,
                                   out.data_ptr(), R, K, plan.width, CLUSTER,

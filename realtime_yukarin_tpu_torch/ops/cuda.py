@@ -9,18 +9,24 @@ The libraries are loaded with ``ctypes``.  A launcher takes the tensors'
 ``data_ptr()`` values and PyTorch's current stream and returns
 ``cudaGetLastError()``; a non-zero code raises here.
 
+Launches inside a CUDA graph capture (``streaming/program.py``) are
+recorded by :func:`capturing` instead of counted, and counted again on
+every replay of the graph, so ``launches`` means launches that ran.
+
 Nothing is compiled or loaded at import time: the CPU tests import every
 module of the port on a machine with no ``nvcc`` and no card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -57,8 +63,9 @@ def _library_path(name: str) -> pathlib.Path:
 class CudaKernel:
     """One kernel of ``csrc/``: its ctypes launcher and its launch count.
 
-    ``launches`` is a plain integer that :meth:`launch` raises by one each
-    time the kernel is launched, and nothing else changes it except
+    ``launches`` is a plain integer that :meth:`count` raises by one each
+    time the kernel runs: at an eager :meth:`launch`, or at each replay of
+    a graph that captured the launch.  Nothing else changes it except
     :func:`reset_counts`, so a run can show it went through the kernel.
     """
 
@@ -95,7 +102,59 @@ class CudaKernel:
         if code != 0:
             raise RuntimeError(f"{self.name}: CUDA error {code} "
                                f"({self._err(code).decode()})")
+        capture = getattr(_thread, "capture", None)
+        if capture is not None:
+            capture.launches.append((self, args))
+        elif torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{self.name}: launched in a CUDA graph "
+                               f"capture outside cuda.capturing(), whose "
+                               f"replays would go uncounted")
+        else:
+            self.count(args)
+
+    def count(self, args: tuple) -> None:
+        """One launch of this kernel with these launcher arguments ran
+        (without the stream argument)."""
         self.launches += 1
+
+
+class Capture:
+    """What one graph capture on this thread recorded: each kernel launch
+    as (kernel, launcher arguments), and the cached device constants the
+    captured work reads, which the graph must keep alive because it holds
+    their addresses."""
+
+    def __init__(self):
+        self.launches: list[tuple[CudaKernel, tuple]] = []
+        self.held: list[torch.Tensor] = []
+
+    def replayed(self) -> None:
+        """Count the recorded launches once: the graph ran again."""
+        for kernel, args in self.launches:
+            kernel.count(args)
+
+
+_thread = threading.local()
+
+
+@contextlib.contextmanager
+def capturing():
+    """Record into a fresh :class:`Capture`, instead of counting, every
+    launch this thread makes in the block (a graph capture)."""
+    capture = Capture()
+    _thread.capture = capture
+    try:
+        yield capture
+    finally:
+        _thread.capture = None
+
+
+def hold(*tensors: torch.Tensor) -> None:
+    """Keep ``tensors`` (cached constants) alive for as long as the graph
+    being captured on this thread, if one is."""
+    capture = getattr(_thread, "capture", None)
+    if capture is not None:
+        capture.held.extend(tensors)
 
 
 # the bank kernels' ints after (R, H, hop): their tiling,

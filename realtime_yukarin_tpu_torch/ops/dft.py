@@ -16,6 +16,8 @@ import math
 import numpy as np
 import torch
 
+from realtime_yukarin_tpu_torch.ops import cuda
+
 
 # ---------------------------------------------------------------------------
 # Host-side basis builders (float64, cast at use site)
@@ -149,11 +151,14 @@ def _const(builder, args: tuple, index, device: str, dtype: torch.dtype
     return torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
 
 
-def device_const(builder, *args, like: torch.Tensor, index=None
+def device_const(make, *args, like: torch.Tensor, index=None
                  ) -> torch.Tensor:
-    """``builder(*args)[index]`` (a host NumPy constant) on ``like``'s
-    device and dtype, uploaded once per (constant, device, dtype)."""
-    return _const(builder, args, index, str(like.device), like.dtype)
+    """``make(*args)[index]`` (a host NumPy constant) on ``like``'s device
+    and dtype, uploaded once per (constant, device, dtype); a graph
+    capture that reads it keeps it alive (``cuda.hold``)."""
+    t = _const(make, args, index, str(like.device), like.dtype)
+    cuda.hold(t)
+    return t
 
 
 # ---------------------------------------------------------------------------

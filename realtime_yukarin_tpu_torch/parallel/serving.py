@@ -24,6 +24,14 @@ counterpart of the JAX rule that replicated values are passed alike).
 Resets ride the in-step mask; ``step`` and ``reset_stream`` refuse at
 more than one rank.  The JAX package's ``step_cost_analysis`` (XLA's cost
 model) is not ported.
+
+The server runs the batched step as one captured device program over
+static buffers (``streaming/program.py``; the counterpart of the JAX
+package's ``jax.jit(step, donate_argnums=(2,))``): the carries, updated in
+place, and the chunks and masks, copied in before each replay.  At
+model_parallel > 1 the step stays eager: every split layer gathers over
+the model group inside it, gloo cannot be captured, and NCCL capture
+across cards waits for a machine with two of them.
 """
 
 from __future__ import annotations
@@ -37,9 +45,10 @@ from realtime_yukarin_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                                       shard_params)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     lane_noise_keys, resolve_device, streaming_step)
+from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.state import (StreamCarry,
                                                         StreamGeometry,
-                                                        tree_map)
+                                                        tree_copy_, tree_map)
 
 
 def _lanes(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -91,6 +100,8 @@ class BatchedServer:
     as in the JAX package.  ``reset_stream(i)`` (or a reset mask) puts lane
     i back to the stored init carry.  ``mesh`` defaults to
     ``make_mesh()``: data-parallel over every rank of the process group.
+    On CUDA at model_parallel 1 the constructor captures the step
+    (``program``, ``captured``): each step is one graph replay.
     """
 
     def __init__(self, params: dict, cfg: Config,
@@ -125,8 +136,32 @@ class BatchedServer:
         self._keys = torch.tensor(
             lane_noise_keys(seed, n)[lo: lo + nl], dtype=torch.int64,
             device=self.device)
-        self._all = torch.ones(nl, dtype=torch.bool, device=self.device)
-        self._none = torch.zeros(nl, dtype=torch.bool, device=self.device)
+        # the program's static inputs
+        self._chunks = torch.zeros((nl, self._geo.chunk_in_samples),
+                                   device=self.device)
+        self._live = torch.ones(nl, dtype=torch.bool, device=self.device)
+        self._reset = torch.zeros(nl, dtype=torch.bool, device=self.device)
+        self.program = CapturedProgram(
+            self._program_step, self._carries, self.device,
+            name=f"batched step ({nl} lanes, {mode})",
+            eager_reason=None if self.mesh.model_parallel == 1 else (
+                "model_parallel > 1: every split layer gathers over the "
+                "model group inside the step; gloo cannot be captured and "
+                "NCCL capture across cards is not verified"))
+
+    @property
+    def captured(self) -> bool:
+        """Whether a step replays one CUDA graph.  False on the CPU and at
+        model_parallel > 1, where the step gathers over the model group
+        and stays eager."""
+        return self.program.captured
+
+    def _program_step(self) -> torch.Tensor:
+        out, carries = self._step(self._params, self._init_carry,
+                                  self._carries, self._chunks, self._keys,
+                                  self._live, self._reset)
+        tree_copy_(self._carries, carries)
+        return out
 
     @property
     def chunk_samples(self) -> int:
@@ -143,17 +178,18 @@ class BatchedServer:
         """End-to-end delay in OUTPUT-rate samples."""
         return self._geo.latency_out_samples(self._cfg.dsp)
 
-    def _mask(self, m, default: torch.Tensor) -> torch.Tensor:
+    def _set_mask(self, buf: torch.Tensor, m, default: bool) -> None:
+        """Copy mask ``m`` (None: all ``default``) into the static
+        ``buf``."""
         if m is None:
-            return default
-        if isinstance(m, torch.Tensor):
-            m = m.to(self.device, torch.bool)
-        else:
-            m = torch.from_numpy(np.asarray(m, bool)).to(self.device)
-        if tuple(m.shape) != tuple(default.shape):
+            buf.fill_(default)
+            return
+        if not isinstance(m, torch.Tensor):
+            m = torch.from_numpy(np.asarray(m, bool))
+        if tuple(m.shape) != tuple(buf.shape):
             raise ValueError(f"mask of shape {tuple(m.shape)}, expected "
-                             f"{tuple(default.shape)}")
-        return m
+                             f"{tuple(buf.shape)}")
+        buf.copy_(m)
 
     def _single(self, what: str) -> None:
         if self.mesh.world > 1:
@@ -163,23 +199,23 @@ class BatchedServer:
 
     def step_device(self, chunks: torch.Tensor, live=None, reset=None
                     ) -> torch.Tensor:
-        """chunks [n, chunk_samples] on the device -> converted [n,
+        """chunks [n, chunk_samples] (on the device, or the host: they are
+        copied into the step's static input) -> converted [n,
         chunk_out_samples] on the device, n the lanes of ``local_slots``
-        (all N on one rank), with no host synchronisation when the masks
-        are device tensors or None.  ``live`` (optional [n] bool) pauses
-        False lanes: their carry is kept and their output is zeros.
-        ``reset`` ([n] bool) puts a lane back to the init carry before its
-        chunk."""
+        (all N on one rank), with no host synchronisation when the chunks
+        and the masks are device tensors (or the masks None).  ``live``
+        (optional [n] bool) pauses False lanes: their carry is kept and
+        their output is zeros.  ``reset`` ([n] bool) puts a lane back to
+        the init carry before its chunk.  The output is the caller's: the
+        next step does not change it."""
         expected = (len(self.local_slots), self.chunk_samples)
         if tuple(chunks.shape) != expected:
             raise ValueError(f"chunks of shape {tuple(chunks.shape)}, "
                              f"expected {expected}")
-        with torch.no_grad():
-            out, self._carries = self._step(
-                self._params, self._init_carry, self._carries, chunks,
-                self._keys, self._mask(live, self._all),
-                self._mask(reset, self._none))
-        return out
+        self._chunks.copy_(chunks)
+        self._set_mask(self._live, live, True)
+        self._set_mask(self._reset, reset, False)
+        return self.program()
 
     def step_local(self, chunks_local: np.ndarray, live=None, reset=None
                    ) -> np.ndarray:
@@ -188,7 +224,7 @@ class BatchedServer:
         (host arrays); the masks [n_local] as in :meth:`step_device`.  One
         rank: exactly :meth:`step`."""
         x = torch.from_numpy(np.ascontiguousarray(chunks_local, np.float32))
-        return self.step_device(x.to(self.device), live, reset).cpu().numpy()
+        return self.step_device(x, live, reset).cpu().numpy()
 
     def step(self, chunks: np.ndarray, live=None, reset=None) -> np.ndarray:
         """chunks [N, chunk_samples] -> converted [N, chunk_out_samples],
@@ -197,17 +233,16 @@ class BatchedServer:
         return self.step_local(chunks, live, reset)
 
     def reset_stream(self, i: int) -> None:
-        """Put lane i back to the stored init carry now (out of place, so
-        no other holder of the carries sees a change).  One rank only."""
+        """Put lane i back to the stored init carry now, in place in the
+        static carries; the other lanes are untouched.  One rank only."""
         self._single("reset_stream()")
         if not 0 <= i < self.num_streams:
             raise IndexError(f"stream {i} of {self.num_streams}")
-        lane = torch.arange(self.num_streams, device=self.device) == i
-        self._carries = tree_map(
-            lambda c, init: torch.where(_lanes(lane, c), init, c),
-            self._carries, self._init_carry)
+        tree_map(lambda c, init: c[i].copy_(init), self._carries,
+                 self._init_carry)
 
     def lane_carry(self, i: int) -> StreamCarry:
-        """Local lane i's carry (views into the batched carry); global slot
-        ``local_slots[i]``."""
+        """Local lane i's carry, global slot ``local_slots[i]``: views into
+        the static batched carry, which the next step updates in place (as
+        a donated JAX carry is consumed); clone what must outlive it."""
         return tree_map(lambda c: c[i], self._carries)

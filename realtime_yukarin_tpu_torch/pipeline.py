@@ -9,9 +9,23 @@ the streaming step from frame 0, so the streamed output equals this one
 on the interior.  Entry points run on ``device`` (``cuda`` unless the
 caller names another; no fallback) with the params already there
 (``models.voice_changer.params_to``), under ``torch.no_grad``.
+
+:func:`offline_convert` runs :func:`offline_convert_eager` as one captured
+device program per call (``streaming/program.py``), the counterpart of the
+JAX package's conversion jitted per static ``num_frames``
+(``realtime_yukarin_tpu/pipeline.py:44``, ``:72``): the first call at a
+length warms up and captures, later calls copy the wave and the noise key
+into the program's static buffers and replay.  Programs are cached by what
+JAX makes static, the least recently used dropped beyond
+``PROGRAM_CACHE_SIZE`` (JAX's cache is unbounded; a graph's pool per
+length is device memory).  ``offline_analyze`` and ``offline_synthesize``
+stay eager.
 """
 
 from __future__ import annotations
+
+import collections
+from typing import NamedTuple
 
 import torch
 
@@ -25,6 +39,7 @@ from realtime_yukarin_tpu_torch.models.voice_changer import (compute_dtype,
                                                              convert_features)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (frame_noise,
                                                            resolve_device)
+from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.state import (StreamGeometry,
                                                         input_plan,
                                                         noise_bins,
@@ -54,14 +69,82 @@ def _check_params(params: dict, device: torch.device) -> None:
                          f"models.voice_changer.params_to(params, device)")
 
 
-@torch.no_grad()
+PROGRAM_CACHE_SIZE = 8
+
+
+class _Program(NamedTuple):
+    program: CapturedProgram
+    wave: torch.Tensor           # static input: the wave
+    key: torch.Tensor            # static input: the noise key, int64 [3]
+    leaves: tuple                # the params' tensors, kept alive: the
+    #                              graph holds their addresses
+
+
+_programs: collections.OrderedDict = collections.OrderedDict()
+
+
+def _tensors(tree) -> list:
+    """The tensors of a params tree (dicts, lists and tuples)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (list, tuple)):
+        return []
+    return [t for item in tree for t in _tensors(item)]
+
+
+def cached_programs() -> list[CapturedProgram]:
+    """The offline programs, least recently used first."""
+    return [entry.program for entry in _programs.values()]
+
+
 def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
                     cfg: Config, num_frames: int, use_sr: bool = True,
                     use_neural_vocoder: bool = False,
                     vocoder_mode: str | None = None, device=None
                     ) -> torch.Tensor:
     """wave [T] at the internal rate -> converted wave [num_frames * hop]
-    on ``device``."""
+    on ``device``, the caller's own tensor: :func:`offline_convert_eager`
+    through the program cached for (T, num_frames, use_sr, the mode, cfg,
+    the device, the params' tensors)."""
+    device = resolve_device(device)
+    _check_params(params, device)
+    mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+    wave = _on(wave, device)
+    leaves = tuple(_tensors(params))
+    sig = (tuple(wave.shape), num_frames, use_sr, mode, cfg, str(device),
+           tuple(t.data_ptr() for t in leaves))
+    entry = _programs.pop(sig, None)
+    if entry is None:
+        buf = wave.clone()
+        key = torch.tensor(noise_key, dtype=torch.int64, device=device)
+        entry = _Program(CapturedProgram(
+            lambda: offline_convert_eager(params, buf, key, cfg, num_frames,
+                                          use_sr, vocoder_mode=mode,
+                                          device=device),
+            device=device, name=f"offline {num_frames} frames ({mode})"),
+            buf, key, leaves)
+    _programs[sig] = entry
+    if len(_programs) > PROGRAM_CACHE_SIZE:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # no replay of it in flight
+        _programs.popitem(last=False)
+    entry.wave.copy_(wave)
+    entry.key.copy_(torch.as_tensor(noise_key, dtype=torch.int64))
+    return entry.program()
+
+
+@torch.no_grad()
+def offline_convert_eager(params: dict, wave,
+                          noise_key: tuple[int, int, int] | torch.Tensor,
+                          cfg: Config, num_frames: int, use_sr: bool = True,
+                          use_neural_vocoder: bool = False,
+                          vocoder_mode: str | None = None, device=None
+                          ) -> torch.Tensor:
+    """:func:`offline_convert`'s body, run eagerly: the reference its
+    replays are held to.  ``noise_key`` is (offset, stride, shift) or an
+    int64 tensor [3] on ``device``."""
     device = resolve_device(device)
     _check_params(params, device)
     mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
@@ -93,7 +176,8 @@ def offline_convert_io(params: dict, wave_in, noise_key: tuple[int, int, int],
     """Client-rate offline conversion: wave at ``cfg.dsp.in_rate`` ->
     converted wave at ``cfg.dsp.out_rate``, through the resample plans the
     streaming step uses (so streamed == offline holds across rates).
-    Identity plans make this exactly :func:`offline_convert`."""
+    Identity plans make this exactly :func:`offline_convert`, whose
+    captured program converts between the two eager resample edges."""
     device = resolve_device(device)
     mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
     geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)

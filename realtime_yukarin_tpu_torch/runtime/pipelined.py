@@ -2,11 +2,15 @@
 ``runtime/pipelined.py``).
 
 One stream's chunks go input ring -> device step -> output ring on a
-background dispatch thread that keeps up to ``depth`` chunks in flight:
-each step's output is copied into a pinned host buffer with
-``non_blocking=True`` and a CUDA event is recorded after the copy, and the
-thread waits only on the event of the chunk ``depth`` steps back, so the
-host's feed, the device's compute and the copy back of consecutive chunks
+background dispatch thread that keeps up to ``depth`` chunks in flight.
+The step is a :class:`VoiceChangerStream`'s captured program, made (and on
+CUDA captured) in the constructor before the thread starts, and replayed
+on the dispatch thread's CUDA stream.  Each in-flight chunk has its own
+pinned staging buffers: its input is copied from one with
+``non_blocking=True``, and its output into another after the replay, then
+a CUDA event is recorded; the thread waits only on the event of the chunk
+``depth`` steps back, whose buffers the next chunk reuses, so the host's
+feed, the device's compute and the copy back of consecutive chunks
 overlap.  On the CPU the step is synchronous and the output is the host
 array itself.
 
@@ -28,24 +32,21 @@ import time
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
-from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.runtime import RingBuffer
-from realtime_yukarin_tpu_torch.streaming.pipeline import (
-    init_stream, noise_key_from_seed, resolve_device, streaming_step)
-from realtime_yukarin_tpu_torch.streaming.state import tree_map
+from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
 from realtime_yukarin_tpu_torch.utils.metrics import ServingMetrics
 
 
 class _Fetch:
-    """A step's output on its way to the host: on a GPU a pinned buffer
-    filled by a non-blocking copy, and the event recorded after it."""
+    """A step's output on its way to the host: on a GPU copied by a
+    non-blocking copy into ``host`` (a pinned staging buffer), and the
+    event recorded after it."""
 
-    def __init__(self, y: torch.Tensor):
-        if y.device.type == "cuda":
-            self._host = torch.empty(y.shape, dtype=y.dtype,
-                                     pin_memory=True)
-            self._host.copy_(y, non_blocking=True)
+    def __init__(self, y: torch.Tensor, host: torch.Tensor | None):
+        if host is not None:
+            host.copy_(y, non_blocking=True)
+            self._host = host
             self._event = torch.cuda.Event()
             self._event.record()
         else:
@@ -70,37 +71,30 @@ class PipelinedStream:
     def __init__(self, params: dict, cfg: Config, use_sr: bool = True,
                  use_neural_vocoder: bool = False, seed: int = 0,
                  depth: int = 2, ring_seconds: float = 4.0,
-                 warmup: bool = True, vocoder_mode: str | None = None,
-                 device=None):
-        self.device = resolve_device(device)
-        self._params = params_to(params, self.device)
-        self._cfg = cfg
-        self._use_sr = use_sr
-        self._mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
-        self._key = torch.tensor(noise_key_from_seed(seed),
-                                 dtype=torch.int64, device=self.device)
-        with torch.no_grad():
-            self._carry, self._geo = init_stream(
-                self._params, cfg, use_sr, vocoder_mode=self._mode,
-                device=self.device)
+                 vocoder_mode: str | None = None, device=None):
+        # the step's program: built (kernels compiled, step captured on
+        # CUDA) here, before the dispatch thread starts
+        self._stream = VoiceChangerStream(
+            params, cfg, use_sr, use_neural_vocoder, seed=seed,
+            vocoder_mode=vocoder_mode, device=device)
+        self.device = self._stream.device
+        self.program = self._stream.program
         self._depth = max(1, depth)
         # the dispatch thread runs on the stream current here, named
         # explicitly: a thread's current stream is its own
-        self._cuda_stream = (torch.cuda.current_stream(self.device)
-                             if self.device.type == "cuda" else None)
-
-        if warmup:
-            # build the kernels (nvcc) and run one step before going live,
-            # on a copy of the carry: the step is out of place, but the
-            # live carry is never handed to a throwaway step
-            scratch = tree_map(torch.clone, self._carry)
-            with torch.no_grad():
-                y, _ = streaming_step(
-                    self._params, scratch,
-                    torch.zeros(self._geo.chunk_in_samples,
-                                device=self.device),
-                    self._key, cfg, use_sr, vocoder_mode=self._mode)
-            _Fetch(y).wait()
+        self._cuda_stream = None
+        # pinned staging, one input and one output buffer per chunk in
+        # flight (depth + 1: chunk k reuses chunk k - depth - 1's, whose
+        # event was waited on before chunk k is dispatched)
+        self._stage_in = self._stage_out = [None] * (self._depth + 1)
+        if self.device.type == "cuda":
+            self._cuda_stream = torch.cuda.current_stream(self.device)
+            self._stage_in = [
+                torch.empty(self.chunk_samples, pin_memory=True)
+                for _ in range(self._depth + 1)]
+            self._stage_out = [
+                torch.empty(self.chunk_out_samples, pin_memory=True)
+                for _ in range(self._depth + 1)]
 
         self._in_rb = RingBuffer(int(ring_seconds * cfg.dsp.in_rate))
         self._out_rb = RingBuffer(int(ring_seconds * cfg.dsp.out_rate))
@@ -118,16 +112,16 @@ class PipelinedStream:
     @property
     def chunk_samples(self) -> int:
         """Input chunk size (samples at cfg.dsp.in_rate)."""
-        return self._geo.chunk_in_samples
+        return self._stream.chunk_samples
 
     @property
     def chunk_out_samples(self) -> int:
-        return self._geo.chunk_out_samples
+        return self._stream.chunk_out_samples
 
     @property
     def latency_samples(self) -> int:
         """End-to-end delay in OUTPUT-rate samples."""
-        return self._geo.latency_out_samples(self._cfg.dsp)
+        return self._stream.latency_samples
 
     def push_input(self, pcm: np.ndarray) -> int:
         """Producer: enqueue PCM; returns samples accepted (drops counted)."""
@@ -151,10 +145,9 @@ class PipelinedStream:
 
     def flush(self, timeout: float = 600.0) -> None:
         """Feed silence to drain algorithmic latency + in-flight chunks,
-        then wait until everything reached the output ring.  The generous
-        default covers a first-use kernel build when warmup was off."""
-        S = self._geo.chunk_in_samples
-        n_lat = -(-self.latency_samples // self._geo.chunk_out_samples)
+        then wait until everything reached the output ring."""
+        S = self.chunk_samples
+        n_lat = -(-self.latency_samples // self.chunk_out_samples)
         self.push_input(np.zeros((n_lat + 1) * S, np.float32))
         self._flushing.set()
         if not self._drained.wait(timeout):
@@ -182,8 +175,9 @@ class PipelinedStream:
                 self._dispatch()
 
     def _dispatch(self) -> None:
-        S = self._geo.chunk_in_samples
+        S = self.chunk_samples
         inflight: list[tuple[float, _Fetch]] = []
+        k = 0
 
         def retire_oldest():
             t_in, fetch = inflight.pop(0)
@@ -195,13 +189,13 @@ class PipelinedStream:
             if self._in_rb.available >= S:
                 chunk, _ = self._in_rb.pop_chunk_or_silence(S)
                 t0 = time.perf_counter()
-                y, self._carry = streaming_step(
-                    self._params, self._carry,
-                    torch.from_numpy(chunk).to(self.device,
-                                               non_blocking=True),
-                    self._key, self._cfg, self._use_sr,
-                    vocoder_mode=self._mode)
-                inflight.append((t0, _Fetch(y)))
+                slot = k % (self._depth + 1)
+                k += 1
+                x = torch.from_numpy(chunk)
+                if self._stage_in[slot] is not None:
+                    x = self._stage_in[slot].copy_(x)
+                y = self._stream.step_device(x)
+                inflight.append((t0, _Fetch(y, self._stage_out[slot])))
                 self.metrics.dispatch_latency.record(
                     1000 * (time.perf_counter() - t0))
                 if len(inflight) > self._depth:

@@ -19,9 +19,10 @@ Threading topology:
     one producer and one consumer, race-free by construction
   * one ticker thread owns the device: it pops a chunk per active slot
     (silence on underrun, counted — the reference's realtime contract),
-    runs the batched step on the CUDA stream that was current when the
-    server was made, and pushes per-slot outputs.  Accept and client
-    threads touch only ring buffers.
+    replays the batched step's captured program (``BatchedServer``) on
+    the CUDA stream that was current when the server was made, and pushes
+    per-slot outputs.  Accept and client threads touch only ring
+    buffers.
   * slots are fixed (this rank's ``BatchedServer.local_slots``); a new
     connection claims a free slot and schedules its carry reset on the
     next tick's in-step reset mask (drop/rejoin); a full server refuses
@@ -124,6 +125,7 @@ class SocketVoiceServer:
                                      seed=seed, vocoder_mode=vocoder_mode,
                                      device=device, mesh=mesh)
         self.device = self._server.device
+        self.program = self._server.program
         self._S = self._server.chunk_samples            # input chunk
         self._So = self._server.chunk_out_samples       # output chunk
         self._n_drain = -(-self._server.latency_samples // self._So) + 1
@@ -142,8 +144,9 @@ class SocketVoiceServer:
         self._cuda_stream = (torch.cuda.current_stream(self.device)
                              if self.device.type == "cuda" else None)
 
-        # build the kernels and run one step before accepting traffic (a
-        # claimed slot's lane is reset before its first chunk)
+        # the BatchedServer captured its step above, before any thread of
+        # this server starts; one step before accepting traffic (a claimed
+        # slot's lane is reset before its first chunk)
         self._server.step_local(np.zeros((len(self._slots), self._S),
                                          np.float32))
 

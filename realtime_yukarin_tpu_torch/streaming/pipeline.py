@@ -8,8 +8,11 @@ three synthesis stages (the DSP renderer, the DDSP control net over the
 same renderer, or the wave decoder's render + learned residual) and the
 output resampled to the client rate.  The three hand-written CUDA kernels
 of this path (power spectrum, envelope cepstrum, harmonic bank) run once
-per step each.  PyTorch runs eagerly; the step is a plain function of
-(params, carry, chunk) returning (output, next carry).
+per step each.  The step is a plain eager function of (params, carry,
+chunk) returning (output, next carry), the counterpart of JAX's
+``streaming_step_impl``; the entry points run it as one captured device
+program per chunk over a carry updated in place
+(``streaming/program.py``).
 
 Noise determinism: each frame's gaussian drivers are a fixed function of
 the global frame index (a table row read through a per-stream
@@ -142,14 +145,20 @@ def frame_noise(noise_key, start_frame, count: int, bins: int,
     of them, ``start_frame`` an int or an int64 tensor [...] (one per
     stream).  Frame i's gaussians are table row (pos*stride + offset +
     block*shift) mod T with pos = i mod T and block = floor(i / T) mod T
-    (floor semantics: the first frames of a stream are negative)."""
+    (floor semantics: the first frames of a stream are negative).  With a
+    device key tensor and an int or device start nothing is copied from
+    the host, so a graph can capture it."""
     T = NOISE_TABLE_FRAMES
     dev = like.device
     table = device_const(_noise_table_np, bins, like=like)
     key = torch.as_tensor(noise_key, dtype=torch.int64, device=dev)
-    start = torch.as_tensor(start_frame, dtype=torch.int64, device=dev)
-    gpos = start[..., None] + torch.arange(count, dtype=torch.int64,
-                                           device=dev)
+    if isinstance(start_frame, int):
+        gpos = torch.arange(start_frame, start_frame + count,
+                            dtype=torch.int64, device=dev)
+    else:
+        start = torch.as_tensor(start_frame, dtype=torch.int64, device=dev)
+        gpos = start[..., None] + torch.arange(count, dtype=torch.int64,
+                                               device=dev)
     offset, stride, shift = (key[..., j, None] for j in range(3))
     pos = torch.remainder(gpos, T)
     block = torch.remainder(torch.div(gpos, T, rounding_mode="floor"), T)

@@ -233,3 +233,17 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_copy_(dst, src) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, leaf by leaf and in place:
+    the donated carry's update (a captured graph holds ``dst``'s
+    addresses).  ``src`` is fresh memory or ``dst`` itself, never a view
+    that partly overlaps a ``dst`` leaf (``copy_`` refuses that)."""
+    tree_map(lambda d, s: d.copy_(s), dst, src)
+
+
+def snapshot(tree):
+    """A copy of every tensor of a carry, for :func:`tree_copy_` to put
+    back."""
+    return tree_map(torch.clone, tree)

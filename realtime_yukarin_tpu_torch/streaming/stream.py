@@ -1,8 +1,9 @@
 """Host-facing streaming voice changer (PyTorch port of
-``streaming/stream.py``): one object owns the carry on the device and
-feeds :func:`streaming_step` (its one-stream case: no leading dim); a
-:class:`SegmentBuffer` re-chunks arbitrary-size audio callbacks onto the
-static chunk grid."""
+``streaming/stream.py``): one object owns the carry on the device and runs
+:func:`streaming_step` (its one-stream case: no leading dim) as one
+captured program per chunk over that carry, updated in place
+(``streaming/program.py``); a :class:`SegmentBuffer` re-chunks
+arbitrary-size audio callbacks onto the static chunk grid."""
 
 from __future__ import annotations
 
@@ -13,7 +14,9 @@ from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
 from realtime_yukarin_tpu_torch.models.voice_changer import params_to
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     init_stream, noise_key_from_seed, resolve_device, streaming_step)
+from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.segment import SegmentBuffer
+from realtime_yukarin_tpu_torch.streaming.state import tree_copy_
 
 
 class VoiceChangerStream:
@@ -26,7 +29,8 @@ class VoiceChangerStream:
     stage is ``resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)``.
     The noise permutation comes from ``seed`` (the same noise as the JAX
     package's ``jax.random.key(seed)``) unless an explicit ``noise_key``
-    (offset, stride, shift) is given.
+    (offset, stride, shift) is given.  On CUDA the constructor captures the
+    step (``program``); each chunk is then one graph replay.
     """
 
     def __init__(self, params: dict, cfg: Config, use_sr: bool = True,
@@ -44,6 +48,11 @@ class VoiceChangerStream:
         self._carry, self._geo = init_stream(self._params, cfg, use_sr,
                                              vocoder_mode=self._mode,
                                              device=self.device)
+        self._chunk = torch.zeros(self._geo.chunk_in_samples,
+                                  device=self.device)
+        self.program = CapturedProgram(
+            self._step, self._carry, self.device,
+            name=f"stream step ({self._mode})")
         self._in = SegmentBuffer()
         self._in_pos = 0          # next input sample to consume
         self._written = 0         # total input samples added
@@ -63,10 +72,28 @@ class VoiceChangerStream:
         """End-to-end delay in output-rate samples."""
         return self._geo.latency_out_samples(self._cfg.dsp)
 
+    def _step(self) -> torch.Tensor:
+        y, carry = streaming_step(self._params, self._carry, self._chunk,
+                                  self._noise_key, self._cfg, self._use_sr,
+                                  vocoder_mode=self._mode)
+        tree_copy_(self._carry, carry)
+        return y
+
+    def step_device(self, chunk: torch.Tensor) -> torch.Tensor:
+        """One chunk [chunk_samples] (a host or device tensor) -> the
+        converted chunk [chunk_out_samples] on the device, the caller's
+        own tensor.  The chunk is copied into the program's static input
+        with ``non_blocking=True``: a pinned host chunk must not be
+        rewritten before the step's work is done."""
+        self._chunk.copy_(chunk, non_blocking=True)
+        return self.program()
+
     def final_f0(self) -> np.ndarray:
         """F0 of the frames that became final in the last step (0 =
-        unvoiced), as a host array."""
-        return self._carry.f0_cache[-self._geo.chunk_frames:].cpu().numpy()
+        unvoiced), as a host array of the caller's own (the carry is
+        updated in place by the next step)."""
+        return self._carry.f0_cache[-self._geo.chunk_frames:].to(
+            "cpu", copy=True).numpy()
 
     def add(self, samples: np.ndarray) -> None:
         """Append input PCM at in_rate (any length)."""
@@ -82,13 +109,8 @@ class VoiceChangerStream:
             chunk = self._in.fetch(self._in_pos, S)
             self._in.remove(self._in_pos + S)
             self._in_pos += S
-            with torch.no_grad():
-                y, self._carry = streaming_step(
-                    self._params, self._carry,
-                    torch.from_numpy(chunk).to(self.device),
-                    self._noise_key, self._cfg, self._use_sr,
-                    vocoder_mode=self._mode)
-            out.append(y.cpu().numpy())
+            out.append(self.step_device(torch.from_numpy(chunk))
+                       .cpu().numpy())
         if not out:
             return np.zeros(0, np.float32)
         return np.concatenate(out)

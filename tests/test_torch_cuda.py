@@ -216,7 +216,8 @@ def test_analysis_kernels_at_the_offline_width(device, R):
 @pytest.mark.parametrize("mode", chip_smoke.VOCODER_MODES)
 def test_offline_convert_through_the_kernels_matches_cpu(device, mode):
     """offline_convert on the card at the default Config in float32: one
-    launch of each forward kernel (the whole utterance at once), the
+    launch of each forward kernel per call (the whole utterance at once;
+    counted on a replay, after the first call's warm-up and capture), the
     output within 2e-3 of the CPU's (the plain versions)."""
     import dataclasses
 
@@ -228,9 +229,12 @@ def test_offline_convert_through_the_kernels_matches_cpu(device, mode):
     F = len(x) // cfg.dsp.hop
     out = {}
     for dev in ("cpu", device):
+        p = params_to(params, dev)
+        offline_convert(p, x, (0, 1, 1), cfg, F, vocoder_mode=mode,
+                        device=dev)
         cuda.reset_counts()
-        out[dev] = offline_convert(params_to(params, dev), x, (0, 1, 1), cfg,
-                                   F, vocoder_mode=mode, device=dev).cpu()
+        out[dev] = offline_convert(p, x, (0, 1, 1), cfg, F,
+                                   vocoder_mode=mode, device=dev).cpu()
     torch.cuda.synchronize()
     assert all(getattr(cuda, k.upper()).launches == 1
                for k in chip_smoke.FORWARD_KERNELS)
@@ -255,3 +259,48 @@ def test_host_edges_on_the_card(device, phase):
     bit for bit and its soak, a 48 kHz client's first chunk
     (chip_smoke.py phases 14-16; each raises on failure)."""
     getattr(chip_smoke, phase)(Config())
+
+
+@pytest.mark.parametrize("mode", chip_smoke.VOCODER_MODES)
+def test_stream_replay_equals_eager(device, mode):
+    """A VoiceChangerStream's captured program over 8 steps against the
+    eager ``streaming_step`` loop, bit for bit (chip_smoke.py phase 19)."""
+    cfg = Config()
+    r = chip_smoke.stream_replay_vs_eager(chip_smoke.vocoder_params(cfg), cfg,
+                                          mode, 8, device)
+    assert r["program"].captured
+    assert r["mismatched"] == []
+
+
+def test_batched_replay_equals_eager_with_masks(device):
+    """BatchedServer's captured program at 64 lanes over phase 12's
+    schedule up to the reset (a paused lane, a reset lane) against
+    ``make_batched_step``'s step, bit for bit; outputs held across the
+    next step unchanged."""
+    cfg = Config()
+    r = chip_smoke.batched_replay_vs_eager(
+        chip_smoke.seeded_params(cfg), cfg, chip_smoke.BATCH_STREAMS,
+        chip_smoke.RESET_STEP + 2, device)
+    assert r["program"].captured
+    assert r["mismatched"] == []
+    assert r["held"]
+
+
+def test_one_launch_per_forward_kernel_per_replay(device):
+    """Each forward kernel is captured once in the stream's graph and
+    counted once per replay (ops/cuda.py's replay accounting)."""
+    from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
+    cfg = Config()
+    stream = VoiceChangerStream(chip_smoke.seeded_params(cfg), cfg,
+                                device=device)
+    program = stream.program
+    assert program.captured
+    assert {k: program.kernel_launches.get(k, 0)
+            for k in chip_smoke.FORWARD_KERNELS} == dict.fromkeys(
+                chip_smoke.FORWARD_KERNELS, 1)
+    cuda.reset_counts()
+    for _ in range(3):
+        stream.step_device(torch.zeros(stream.chunk_samples))
+    torch.cuda.synchronize()
+    assert all(getattr(cuda, k.upper()).launches == 3
+               for k in chip_smoke.FORWARD_KERNELS)

@@ -6,7 +6,8 @@
     python3 tools/torch_step_profile.py --offline [--steps 3]  # offline
     python3 tools/torch_step_profile.py --train [--steps 3] # training steps
 
-Streaming: runs ``VoiceChangerStream(device="cuda")`` at the default Config
+Streaming: runs ``VoiceChangerStream(device="cuda")`` (one captured graph
+per step, ``streaming/program.py``) at the default Config
 (full width, bf16 models, the seeded weights and signal of chip_smoke.py,
 the vocoder heads perturbed as in its phases 8-10 unless the mode is dsp),
 in the ``--vocoder`` mode and at the ``--client_rate`` (in and out; default
@@ -14,8 +15,8 @@ the internal 24 kHz), warms up, then traces ``--steps`` steps with
 ``torch.profiler``.
 
 ``--offline``: ``pipeline.offline_convert`` on chip_smoke.py's 3 s signal
-(600 frames) in each vocoder mode: one warm-up call, then ``--steps``
-calls traced.
+(600 frames) in each vocoder mode: one call (which captures), then
+``--steps`` replays traced.
 
 ``--train``: the default Config at full width in float32 with chip_smoke's
 batch (8 utterances x 100 frames); for the joint and the GAN objective in
@@ -25,8 +26,11 @@ on the card and, separately, ``--steps`` train steps on one batch (what
 
 For each window it prints the host wall time per step, the device busy
 time per step (sum of GPU kernel and copy durations; one stream, so they do
-not overlap), the device idle share, the GPU launches per step, the GPU
-kernels by total time and the port's kernels' time per launch.
+not overlap; for a replayed graph the profiler's sum where it lists the
+graph's kernels, else CUDA events around the replays, and the line says
+which), the device idle share, the GPU launches and the host's launch and
+copy calls per step, the GPU kernels by total time and the port's kernels'
+time per launch.
 """
 
 from __future__ import annotations
@@ -38,22 +42,27 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 
-def profile_window(label: str, fn, n: int) -> None:
+def profile_window(label: str, fn, n: int, program=None) -> None:
     """Trace ``n`` calls of ``fn`` (``chip_smoke.profile_stats``) and print
-    the window's numbers."""
+    the window's numbers.  ``fn`` replays ``program`` (a captured
+    program) where given: its device busy time is the profiler's where
+    it lists the replay's kernels, else CUDA events around the replays
+    (``chip_smoke.device_busy``); the line says which."""
     import torch
 
     import chip_smoke
-    st = chip_smoke.profile_stats(fn, n)
+    st, busy, method = chip_smoke.device_busy(fn, program, n)
     print(f"[profile] {label}: {torch.cuda.get_device_name(0)}; {n} steps; "
-          f"host wall {st['wall_ms']:.3f} ms/step")
+          f"host wall {st['wall_ms']:.3f} ms/step"
+          + (f"; {program.summary()}" if program is not None else ""))
     if st["idle"] is None:
         print(f"[profile] {label}: device time: not measured (no CUDA "
               f"events traced)")
         return
-    print(f"[profile] {label}: device busy {st['busy_ms']:.3f} ms/step, "
-          f"idle share {st['idle']:.3f}, "
-          f"{st['gpu_launches']:.1f} GPU launches/step")
+    print(f"[profile] {label}: device busy {busy:.3f} ms/step ({method}), "
+          f"idle share {1.0 - busy / st['wall_ms']:.3f}, "
+          f"{st['gpu_launches']:.1f} GPU launches/step, "
+          f"{st['host_launches']:.1f} host launch/copy calls/step")
     rows = sorted(st["by_name"].items(), key=lambda kv: -sum(kv[1]))
     for name, times in rows[:20]:
         print(f"[profile] {label}: {sum(times) / n:9.1f} us/step "
@@ -88,14 +97,16 @@ def profile_stream(steps: int, mode: str, rate: int | None) -> None:
 
     for _ in range(5):                           # warm-up
         one_step()
-    profile_window(f"stream {mode} @{cfg.dsp.in_rate} Hz", one_step, steps)
+    profile_window(f"stream {mode} @{cfg.dsp.in_rate} Hz", one_step, steps,
+                   stream.program)
 
 
 def profile_offline(steps: int) -> None:
     import chip_smoke
     from realtime_yukarin_tpu_torch.config import Config
     from realtime_yukarin_tpu_torch.models.voice_changer import params_to
-    from realtime_yukarin_tpu_torch.pipeline import offline_convert
+    from realtime_yukarin_tpu_torch.pipeline import (cached_programs,
+                                                     offline_convert)
     from realtime_yukarin_tpu_torch.streaming.pipeline import (
         noise_key_from_seed)
 
@@ -108,8 +119,9 @@ def profile_offline(steps: int) -> None:
         def call():
             offline_convert(params, x, key, cfg, F, vocoder_mode=mode,
                             device="cuda")
-        call()                                   # warm-up
-        profile_window(f"offline {mode} ({F} frames)", call, steps)
+        call()                                   # warm-up and capture
+        profile_window(f"offline {mode} ({F} frames)", call, steps,
+                       cached_programs()[-1])
 
 
 def profile_train(steps: int) -> None:
