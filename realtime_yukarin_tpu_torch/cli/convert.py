@@ -20,15 +20,13 @@ layout (``cli.train --export_params``) or its default flax ``.msgpack``;
 from __future__ import annotations
 
 import argparse
-import sys
 
 import torch
 
 from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.models.voice_changer import (init_params,
                                                              load_all_params)
-from realtime_yukarin_tpu_torch.pipeline import (cached_programs,
-                                                 offline_convert_io)
+from realtime_yukarin_tpu_torch.pipeline import offline_convert_io
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     noise_key_from_seed, resolve_device)
 from realtime_yukarin_tpu_torch.utils.audio_io import read_wav, write_wav
@@ -63,7 +61,6 @@ def main(argv: list[str] | None = None) -> None:
     y = offline_convert_io(params, x, noise_key_from_seed(args.seed), cfg,
                            use_sr=not args.no_sr, vocoder_mode=mode,
                            device=device).cpu().numpy()
-    print(f"[convert] {cached_programs()[-1].summary()}", file=sys.stderr)
     write_wav(args.output_path, y, cfg.dsp.out_rate)
     print(f"wrote {args.output_path}: {len(y)} samples "
           f"@ {cfg.dsp.out_rate} Hz")

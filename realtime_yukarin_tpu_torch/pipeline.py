@@ -10,16 +10,18 @@ on the interior.  Entry points run on ``device`` (``cuda`` unless the
 caller names another; no fallback) with the params already there
 (``models.voice_changer.params_to``), under ``torch.no_grad``.
 
-:func:`offline_convert` runs :func:`offline_convert_eager` as one captured
-device program per call (``streaming/program.py``), the counterpart of the
-JAX package's conversion jitted per static ``num_frames``
-(``realtime_yukarin_tpu/pipeline.py:44``, ``:72``): the first call at a
-length warms up and captures, later calls copy the wave and the noise key
-into the program's static buffers and replay.  Programs are cached by what
-JAX makes static, the least recently used dropped beyond
-``PROGRAM_CACHE_SIZE`` (JAX's cache is unbounded; a graph's pool per
-length is device memory).  ``offline_analyze`` and ``offline_synthesize``
-stay eager.
+:func:`offline_convert` is the counterpart of the JAX package's
+conversion jitted per static ``num_frames``
+(``realtime_yukarin_tpu/pipeline.py:44``, ``:72``), with the capture put
+off until a length repeats: the first call at a length runs
+:func:`offline_convert_eager` and remembers the length, the second warms
+up and captures it as one device program (``streaming/program.py``), and
+every later call copies the wave and the noise key into the program's
+static buffers and replays.  A conversion made once (``cli.convert``)
+thus pays nothing for a capture.  Lengths are kept by what JAX makes
+static, the least recently used dropped beyond ``PROGRAM_CACHE_SIZE``
+(JAX's cache is unbounded; a graph's pool per length is device memory).
+``offline_analyze`` and ``offline_synthesize`` stay eager.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ class _Program(NamedTuple):
     #                              graph holds their addresses
 
 
+# signature -> its _Program, or None for a length seen once (run eagerly)
 _programs: collections.OrderedDict = collections.OrderedDict()
 
 
@@ -95,8 +98,8 @@ def _tensors(tree) -> list:
 
 
 def cached_programs() -> list[CapturedProgram]:
-    """The offline programs, least recently used first."""
-    return [entry.program for entry in _programs.values()]
+    """The captured offline programs, least recently used first."""
+    return [entry.program for entry in _programs.values() if entry]
 
 
 def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
@@ -105,9 +108,10 @@ def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
                     vocoder_mode: str | None = None, device=None
                     ) -> torch.Tensor:
     """wave [T] at the internal rate -> converted wave [num_frames * hop]
-    on ``device``, the caller's own tensor: :func:`offline_convert_eager`
-    through the program cached for (T, num_frames, use_sr, the mode, cfg,
-    the device, the params' tensors)."""
+    on ``device``, the caller's own tensor: :func:`offline_convert_eager`,
+    run eagerly the first time (T, num_frames, use_sr, the mode, cfg, the
+    device and the params' tensors) is seen and through the program
+    captured for it from the second time on."""
     device = resolve_device(device)
     _check_params(params, device)
     mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
@@ -115,8 +119,9 @@ def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
     leaves = tuple(_tensors(params))
     sig = (tuple(wave.shape), num_frames, use_sr, mode, cfg, str(device),
            tuple(t.data_ptr() for t in leaves))
+    seen = sig in _programs
     entry = _programs.pop(sig, None)
-    if entry is None:
+    if seen and entry is None:
         buf = wave.clone()
         key = torch.tensor(noise_key, dtype=torch.int64, device=device)
         entry = _Program(CapturedProgram(
@@ -130,6 +135,10 @@ def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
         if device.type == "cuda":
             torch.cuda.synchronize(device)   # no replay of it in flight
         _programs.popitem(last=False)
+    if entry is None:
+        return offline_convert_eager(params, wave, noise_key, cfg,
+                                     num_frames, use_sr, vocoder_mode=mode,
+                                     device=device)
     entry.wave.copy_(wave)
     entry.key.copy_(torch.as_tensor(noise_key, dtype=torch.int64))
     return entry.program()
@@ -176,8 +185,8 @@ def offline_convert_io(params: dict, wave_in, noise_key: tuple[int, int, int],
     """Client-rate offline conversion: wave at ``cfg.dsp.in_rate`` ->
     converted wave at ``cfg.dsp.out_rate``, through the resample plans the
     streaming step uses (so streamed == offline holds across rates).
-    Identity plans make this exactly :func:`offline_convert`, whose
-    captured program converts between the two eager resample edges."""
+    Identity plans make this exactly :func:`offline_convert`, which
+    converts between the two eager resample edges."""
     device = resolve_device(device)
     mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
     geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)

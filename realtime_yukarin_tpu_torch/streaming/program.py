@@ -19,14 +19,13 @@ nothing falls back to eager execution on CUDA.
 
 from __future__ import annotations
 
+import gc
 import time
 
 import torch
 
 from realtime_yukarin_tpu_torch.ops import cuda
 from realtime_yukarin_tpu_torch.streaming.state import snapshot, tree_copy_
-
-WARMUP_CALLS = 2
 
 
 def _pool_bytes(pool) -> int:
@@ -42,8 +41,8 @@ class CapturedProgram:
     ``state`` tree, updates ``state`` in place (``tree_copy_``) and
     returns its output tensor.  On CUDA, unless the caller gives an
     ``eager_reason`` (why the body cannot be captured), the constructor
-    builds the kernels, warms the body up (:meth:`warm_up`: the first
-    call fills the host-constant caches and the kernel plans), then
+    builds the kernels, warms the body up (:meth:`warm_up`: one call
+    fills the host-constant caches and the kernel plans), then
     captures it under ``torch.no_grad()`` into a private memory pool.  The
     warm-up and the capture run on the real state, so it is snapshot first
     and put back after each.  Each call then replays the graph on the
@@ -85,32 +84,25 @@ class CapturedProgram:
         return counts
 
     def warm_up(self):
-        """Run the body ``WARMUP_CALLS`` times on the real state, then put
-        the state back: a snapshot is taken first, so ``frame_pos`` and the
-        caches have not moved on when the capture begins.  On CUDA the
-        calls run on a side stream, all but the first (which uploads the
-        host constants, and so synchronises) under
-        ``set_sync_debug_mode("error")``.  Returns the snapshot."""
+        """Run the body once on the real state, then put the state back: a
+        snapshot is taken first, so ``frame_pos`` and the caches have not
+        moved on when the capture begins.  The call fills the
+        host-constant caches and the kernel plans, so the capture neither
+        allocates a constant nor copies from the host; the capture itself
+        refuses a host sync or a pageable copy
+        (``capture_error_mode="thread_local"``).  On CUDA the call runs on
+        a side stream.  Returns the snapshot."""
         saved = snapshot(self.state)
-        if self.device.type != "cuda":
-            with torch.no_grad():
-                for _ in range(WARMUP_CALLS):
+        with torch.no_grad():
+            if self.device.type != "cuda":
+                self._body()
+            else:
+                main = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
                     self._body()
-            tree_copy_(self.state, saved)
-            return saved
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        mode = torch.cuda.get_sync_debug_mode()
-        with torch.no_grad(), torch.cuda.stream(side):
-            self._body()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                for _ in range(WARMUP_CALLS - 1):
-                    self._body()
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-        main.wait_stream(side)
+                main.wait_stream(side)
         tree_copy_(self.state, saved)
         return saved
 
@@ -120,10 +112,19 @@ class CapturedProgram:
         saved = self.warm_up()
         pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), cuda.capturing() as capture:
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                out = self._body()
+        # a program's body refers back to its owner, so a dropped stream or
+        # server is freed by the cyclic collector, which must not destroy
+        # its graph in the middle of this capture (that invalidates it)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.no_grad(), cuda.capturing() as capture:
+                with torch.cuda.graph(graph, pool=pool,
+                                      capture_error_mode="thread_local"):
+                    out = self._body()
+        finally:
+            if collecting:
+                gc.enable()
         tree_copy_(self.state, saved)
         torch.cuda.synchronize(self.device)
         self._graph, self._capture, self._out = graph, capture, out
@@ -144,6 +145,6 @@ class CapturedProgram:
             return (f"{self.name}: eager on {self.device} "
                     f"({self.eager_reason})")
         return (f"{self.name}: one CUDA graph per call, captured in "
-                f"{self.capture_s:.2f} s ({WARMUP_CALLS} warm-up calls "
-                f"included), graph pool {self.pool_bytes / 2 ** 20:.1f} "
-                f"MiB, port kernels per replay {self.kernel_launches}")
+                f"{self.capture_s:.2f} s (one warm-up call included), "
+                f"graph pool {self.pool_bytes / 2 ** 20:.1f} MiB, port "
+                f"kernels per replay {self.kernel_launches}")

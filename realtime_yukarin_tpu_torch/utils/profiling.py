@@ -6,10 +6,9 @@ Chrome trace (``trace.json``, viewable in Perfetto or chrome://tracing);
 ``annotate(name)`` labels host-side phases and ``step_annotation(i)``
 marks one serving or training step, so chunk boundaries show beside the
 device's kernels.  A captured step (``streaming/program.py``) shows on the
-host as one graph launch and its copies; its kernels show on the device
-one by one where CUPTI lists a replayed graph's kernels
-(``chip_smoke.lists_replays`` tells; ``tools/torch_step_profile.py``
-falls back to CUDA events around the replays where it does not).
+host as one graph launch and its copies, and its kernels on the device
+one by one (CUPTI lists a replayed graph's kernels; ``chip_smoke.py``
+phase 19 fails where it does not).
 
 Usage:
     with trace("/tmp/torch-trace"):         # or serve --profile_dir ...

@@ -216,8 +216,7 @@ def test_analysis_kernels_at_the_offline_width(device, R):
 @pytest.mark.parametrize("mode", chip_smoke.VOCODER_MODES)
 def test_offline_convert_through_the_kernels_matches_cpu(device, mode):
     """offline_convert on the card at the default Config in float32: one
-    launch of each forward kernel per call (the whole utterance at once;
-    counted on a replay, after the first call's warm-up and capture), the
+    launch of each forward kernel (the whole utterance at once), the
     output within 2e-3 of the CPU's (the plain versions)."""
     import dataclasses
 
@@ -229,12 +228,9 @@ def test_offline_convert_through_the_kernels_matches_cpu(device, mode):
     F = len(x) // cfg.dsp.hop
     out = {}
     for dev in ("cpu", device):
-        p = params_to(params, dev)
-        offline_convert(p, x, (0, 1, 1), cfg, F, vocoder_mode=mode,
-                        device=dev)
         cuda.reset_counts()
-        out[dev] = offline_convert(p, x, (0, 1, 1), cfg, F,
-                                   vocoder_mode=mode, device=dev).cpu()
+        out[dev] = offline_convert(params_to(params, dev), x, (0, 1, 1), cfg,
+                                   F, vocoder_mode=mode, device=dev).cpu()
     torch.cuda.synchronize()
     assert all(getattr(cuda, k.upper()).launches == 1
                for k in chip_smoke.FORWARD_KERNELS)
@@ -304,3 +300,23 @@ def test_one_launch_per_forward_kernel_per_replay(device):
     torch.cuda.synchronize()
     assert all(getattr(cuda, k.upper()).launches == 3
                for k in chip_smoke.FORWARD_KERNELS)
+
+
+def test_no_collection_during_a_capture(device):
+    """The cyclic collector is off while a body is captured (a dropped
+    program's graph, freed in the middle of another capture, invalidates
+    it) and on again after it; the warm-up call runs with it on."""
+    import gc
+
+    from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
+    x = torch.zeros(8, device=device)
+    seen = []
+
+    def body():
+        seen.append(gc.isenabled())
+        return x + 1
+
+    program = CapturedProgram(body, device=device)
+    assert program.captured
+    assert seen == [True, False]
+    assert gc.isenabled()

@@ -18,7 +18,6 @@ import chip_smoke
 from realtime_yukarin_tpu.streaming.stream import VoiceChangerStream as JStream
 from realtime_yukarin_tpu_torch import pipeline as t_offline
 from realtime_yukarin_tpu_torch.streaming import pipeline as t_pipe
-from realtime_yukarin_tpu_torch.streaming.program import WARMUP_CALLS
 from realtime_yukarin_tpu_torch.streaming.state import tree_leaves
 from realtime_yukarin_tpu_torch.streaming.stream import (
     VoiceChangerStream as TStream)
@@ -116,6 +115,8 @@ def test_stream_and_offline_outputs_stay_the_callers(setup):
     ts.step_device(torch.from_numpy(x[S: 2 * S]))
     assert torch.equal(y0, kept)
     F = 2 * S // tc.dsp.hop
+    t_offline.offline_convert(tp, x[: 2 * S], (0, 1, 1), tc, F,
+                              device="cpu")     # the first call: eager
     o0 = t_offline.offline_convert(tp, x[: 2 * S], (0, 1, 1), tc, F,
                                    device="cpu")
     kept = o0.clone()
@@ -125,9 +126,10 @@ def test_stream_and_offline_outputs_stay_the_callers(setup):
 
 
 def test_offline_program_cache(setup, monkeypatch):
-    """One program per (length, mode); a call equals the eager body bit for
-    bit, a repeated call reuses its program, and beyond the bound the least
-    recently used program goes."""
+    """A length's first call runs the eager body and captures nothing, its
+    second builds the program; every call equals the eager body bit for
+    bit, a repeated call reuses its program, and beyond the bound the
+    least recently used length goes."""
     _, tc, _, tp = setup
     monkeypatch.setattr(t_offline, "_programs", collections.OrderedDict())
     monkeypatch.setattr(t_offline, "PROGRAM_CACHE_SIZE", 3)
@@ -149,21 +151,26 @@ def test_offline_program_cache(setup, monkeypatch):
         return [p.name for p in t_offline.cached_programs()]
 
     call(40, "dsp")
+    assert names() == []             # a conversion made once: no program
+    call(40, "dsp", seed=3)
     call(50, "dsp")
+    call(50, "dsp")
+    call(40, "ddsp")
     call(40, "ddsp")
     assert names() == ["offline 40 frames (dsp)", "offline 50 frames (dsp)",
                        "offline 40 frames (ddsp)"]
     first = t_offline.cached_programs()[0]
     call(40, "dsp", seed=5)          # a new key, the same program
-    assert names()[-1] == "offline 40 frames (dsp)"
     assert t_offline.cached_programs()[-1] is first
     call(60, "dsp")                  # the bound: 50 frames (dsp) goes
-    assert names() == ["offline 40 frames (ddsp)", "offline 40 frames (dsp)",
-                       "offline 60 frames (dsp)"]
+    assert names() == ["offline 40 frames (ddsp)", "offline 40 frames (dsp)"]
+    call(60, "dsp")
+    assert names()[-1] == "offline 60 frames (dsp)"
+    assert len(t_offline._programs) == 3
 
 
 def test_warm_up_puts_the_carry_back(setup):
-    """The warm-up runs the body WARMUP_CALLS times on the real carry and
+    """The warm-up runs the body once on the real carry and
     then restores it from its snapshot: frame_pos and every leaf where
     they were, and the next step equals a fresh stream's first."""
     _, tc, _, tp = setup
@@ -177,7 +184,7 @@ def test_warm_up_puts_the_carry_back(setup):
     body = ts.program._body
     ts.program._body = lambda: calls.append(1) or body()
     ts.program.warm_up()
-    assert len(calls) == WARMUP_CALLS
+    assert len(calls) == 1
     assert int(ts._carry.frame_pos) == frame_pos == -ts._geo.delay_frames
     assert all(torch.equal(a, b)
                for a, b in zip(before, tree_leaves(ts._carry)))

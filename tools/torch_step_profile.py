@@ -15,8 +15,8 @@ the internal 24 kHz), warms up, then traces ``--steps`` steps with
 ``torch.profiler``.
 
 ``--offline``: ``pipeline.offline_convert`` on chip_smoke.py's 3 s signal
-(600 frames) in each vocoder mode: one call (which captures), then
-``--steps`` replays traced.
+(600 frames) in each vocoder mode: two calls (the first runs eagerly, the
+second captures), then ``--steps`` replays traced.
 
 ``--train``: the default Config at full width in float32 with chip_smoke's
 batch (8 utterances x 100 frames); for the joint and the GAN objective in
@@ -26,9 +26,8 @@ on the card and, separately, ``--steps`` train steps on one batch (what
 
 For each window it prints the host wall time per step, the device busy
 time per step (sum of GPU kernel and copy durations; one stream, so they do
-not overlap; for a replayed graph the profiler's sum where it lists the
-graph's kernels, else CUDA events around the replays, and the line says
-which), the device idle share, the GPU launches and the host's launch and
+not overlap; the profiler lists a replayed graph's kernels one by one),
+the device idle share, the GPU launches and the host's launch and
 copy calls per step, the GPU kernels by total time and the port's kernels'
 time per launch.
 """
@@ -44,14 +43,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 def profile_window(label: str, fn, n: int, program=None) -> None:
     """Trace ``n`` calls of ``fn`` (``chip_smoke.profile_stats``) and print
-    the window's numbers.  ``fn`` replays ``program`` (a captured
-    program) where given: its device busy time is the profiler's where
-    it lists the replay's kernels, else CUDA events around the replays
-    (``chip_smoke.device_busy``); the line says which."""
+    the window's numbers; ``program`` is the captured program ``fn``
+    replays, if any, whose summary the first line carries."""
     import torch
 
     import chip_smoke
-    st, busy, method = chip_smoke.device_busy(fn, program, n)
+    st = chip_smoke.profile_stats(fn, n)
     print(f"[profile] {label}: {torch.cuda.get_device_name(0)}; {n} steps; "
           f"host wall {st['wall_ms']:.3f} ms/step"
           + (f"; {program.summary()}" if program is not None else ""))
@@ -59,8 +56,8 @@ def profile_window(label: str, fn, n: int, program=None) -> None:
         print(f"[profile] {label}: device time: not measured (no CUDA "
               f"events traced)")
         return
-    print(f"[profile] {label}: device busy {busy:.3f} ms/step ({method}), "
-          f"idle share {1.0 - busy / st['wall_ms']:.3f}, "
+    print(f"[profile] {label}: device busy {st['busy_ms']:.3f} ms/step, "
+          f"idle share {st['idle']:.3f}, "
           f"{st['gpu_launches']:.1f} GPU launches/step, "
           f"{st['host_launches']:.1f} host launch/copy calls/step")
     rows = sorted(st["by_name"].items(), key=lambda kv: -sum(kv[1]))
@@ -119,6 +116,7 @@ def profile_offline(steps: int) -> None:
         def call():
             offline_convert(params, x, key, cfg, F, vocoder_mode=mode,
                             device="cuda")
+        call()                                   # eager
         call()                                   # warm-up and capture
         profile_window(f"offline {mode} ({F} frames)", call, steps,
                        cached_programs()[-1])
