@@ -46,10 +46,11 @@ non-zero):
 5. parity: the same input with ``compute_dtype="float32"`` through the
    port on CUDA (the kernels) and on the CPU (the plain versions);
 6. training: the default Config at full width in float32, 3 steps of the
-   joint train step then 3 of the GAN step, each on a fresh ``make_batch``
-   of 8 x 100 frames built on the card (what ``cli.train --synthetic``
-   does per step); checks finite losses, that every subtree moved and
-   that the backward kernel ran at least once per step;
+   joint train step then 3 of the GAN step (captured programs), each on a
+   fresh ``make_batch`` of 8 x 100 frames built on the card (what
+   ``cli.train --synthetic`` does per step); checks finite losses, that
+   every subtree moved and that the backward kernel ran at least once per
+   step;
 7. training parity: one step's losses and gradients on CUDA (the kernels,
    cuDNN with TF32 off) and on the CPU (the plain versions), same weights,
    same batch of 2; the wave decoder's leaves are held at the CUDA step's
@@ -135,11 +136,27 @@ non-zero):
    aggregate x realtime, device busy and idle share by the profiler, host
    launch and copy calls per step), offline 3 s (eager, the first call,
    the second with its capture, a replay);
-20. the kernels line: one JSON object with every kernel's numbers;
-21. last line: ``{"ok": true, "device": {...}}``.
+20. the captured training steps (``training/train_step.py:StepProgram``)
+   at the default Config in float32 on 8 x 100-frame batches: (a) two
+   eager runs of 4 steps from one state bit-equal (every parameter,
+   moment, step count, EMA and discriminator leaf, every metric) for the
+   joint, GAN and fine-tune steps; (b) 8 replays of each against its eager
+   body bit for bit, the analysis program at 100 frames and at a prepared
+   3.3 s file's bucket (800 frames) against ``offline_analyze_eager``, the
+   synthesis program against ``offline_synthesize_eager``; (c) each
+   program's port kernels per replay equal to the eager step's, as
+   captured, as counted over 3 replays and as ``torch.profiler`` lists
+   them; (d) eager and captured side by side: each step's p50 / p99,
+   device busy and idle share, host launch calls, capture time and pool;
+   ``make_batch`` as its host synthesis and its analysis eager and
+   captured; phase 17 (a)'s preparation with eager analysis and through
+   the programs; the quality recipe's wall time (phase 17 (c));
+21. the kernels line: one JSON object with every kernel's numbers;
+22. last line: ``{"ok": true, "device": {...}}``.
 
-Phases 4, 8-10 and 12-16 (and 18's serving) run the captured programs:
-their launch counts come from the replay accounting of ``ops/cuda.py``.
+Phases 4, 6, 8-10, 12-17 (and 18's serving and its one-process training
+reference) run the captured programs: their launch counts come from the
+replay accounting of ``ops/cuda.py``.
 
 Exits non-zero without a result when CUDA is not available or the port's
 package is missing.  Imports nothing of JAX.
@@ -278,6 +295,13 @@ CAPTURE_STREAMS = (("dsp", "bfloat16", None), ("ddsp", "bfloat16", None),
                    ("wave", "bfloat16", None),
                    ("dsp", "bfloat16", CLIENT_RATE),
                    ("dsp", "float32", None))
+# Phase 20: the captured training steps at the default Config in float32 on
+# TRAIN_BATCH x TRAIN_FRAMES batches: two eager runs of DET_STEPS steps from
+# one state, then TRAIN_REPLAYS replays against the eager body, per
+# objective; the fine-tune at its optimizer's learning rate.
+TRAIN_OBJECTIVES = ("joint", "gan", "finetune")
+DET_STEPS, TRAIN_REPLAYS, FINETUNE_LR = 4, 8, 3e-4
+TRAIN_TIMED = 16            # steps timed per objective and way
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -1502,6 +1526,7 @@ def prepare_phase(cfg, root, dev) -> tuple[dict, object]:
     import shutil
     import torch
     from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.pipeline import cached_programs
     from realtime_yukarin_tpu_torch.training import align, corpus
 
     src, tgt, audio_s = _wav_pairs(root, CORPUS_PAIRS, cfg.dsp.sample_rate)
@@ -1518,6 +1543,7 @@ def prepare_phase(cfg, root, dev) -> tuple[dict, object]:
         return r
 
     corpus.align_pair = timed_align
+    before = set(map(id, cached_programs()))
     try:
         cuda.reset_counts()
         t0 = time.perf_counter()
@@ -1529,6 +1555,9 @@ def prepare_phase(cfg, root, dev) -> tuple[dict, object]:
         launches = launch_counts()
     finally:
         corpus.align_pair = align_pair
+    # each analysis program built here (a bucket length's second file) ran
+    # its body once more, eagerly, to warm up
+    built = [p.name for p in cached_programs() if id(p) not in before]
     rows = sorted({corpus.frame_bucket(int(s * cfg.dsp.sample_rate)
                                        // cfg.dsp.hop, CORPUS_BUCKET)
                    for s in CORPUS_SECONDS})
@@ -1536,11 +1565,12 @@ def prepare_phase(cfg, root, dev) -> tuple[dict, object]:
           f"{wall:.3f} s: x{audio_s / wall:.1f} audio seconds per second; "
           f"DTW {sum(dtw_s):.3f} s ({sum(dtw_s) / wall:.3f} of the wall, "
           f"{np.mean(dtw_s) * 1e3:.1f} ms per pair); launches {launches}; "
-          f"analysis rows per launch {rows}")
+          f"analysis rows per launch {rows}; programs built {built}")
     for k in ("power_spectrum", "envelope_cepstrum"):
-        if launches[k] != 2 * CORPUS_PAIRS:
+        if launches[k] != 2 * CORPUS_PAIRS + len(built):
             raise AssertionError(f"{k} launched {launches[k]} times for "
-                                 f"{2 * CORPUS_PAIRS} files")
+                                 f"{2 * CORPUS_PAIRS} files and {len(built)} "
+                                 f"warm-ups")
     stats = {n: _npz(out / f"stats_{n}.npz") for n in ("input", "target")}
     print("[prepare] F0 stats " + ", ".join(
         f"{n}: mean {float(s['mean']):.4f} std {float(s['std']):.4f}"
@@ -1683,9 +1713,10 @@ def _distance(doc, ref, path="") -> list[str]:
     return []
 
 
-def quality_phase(root, dev) -> dict:
+def quality_phase(root, dev) -> tuple[dict, float]:
     """Phase 17 (c): tools/torch_quality.py's recipe on the card, gated
-    with the JAX package's held-out gates.  Returns the launches."""
+    with the JAX package's held-out gates.  Returns (the launches, the
+    recipe's wall seconds)."""
     import pathlib
     import torch
     from realtime_yukarin_tpu_torch.ops import cuda
@@ -1715,14 +1746,15 @@ def quality_phase(root, dev) -> dict:
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"the quality recipe launched no {missing}")
-    return launches
+    return launches, wall
 
 
-def corpus_phase(cfg, dev, checked: dict[str, set]) -> dict[str, dict]:
+def corpus_phase(cfg, dev, checked: dict[str, set]
+                 ) -> tuple[dict[str, dict], float]:
     """Phase 17: (a) prepare, (b) train at full width, fine-tune and
     export, (c) the quality recipe.  Every shape the phase gives a kernel
     must be one that phase 3 held against the plain version (``checked``).
-    Returns each part's launches."""
+    Returns (each part's launches, the quality recipe's wall seconds)."""
     import collections
     import tempfile
     out = {}
@@ -1737,7 +1769,7 @@ def corpus_phase(cfg, dev, checked: dict[str, set]) -> dict[str, dict]:
             print(f"[corpus-train] phase seconds "
                   f"{time.perf_counter() - t0:.1f}")
             t0 = time.perf_counter()
-            out["quality"] = quality_phase(root, dev)
+            out["quality"], quality_s = quality_phase(root, dev)
             print(f"[quality] phase seconds {time.perf_counter() - t0:.1f}")
     finally:
         undo()
@@ -1754,7 +1786,7 @@ def corpus_phase(cfg, dev, checked: dict[str, set]) -> dict[str, dict]:
                              f"{unchecked}")
     print("[corpus] every shape of phase 17 was held against the plain "
           "version in phase 3")
-    return out
+    return out, quality_s
 
 
 # -- two ranks on one card over torch.distributed (phase 18) ----------------
@@ -2068,12 +2100,13 @@ def mh_reference_train(cfg, dev, batch, cotangents: dict) -> dict:
 
     state = ts.init_train_state(perturbed_training_params(cfg), dev)
     _, grads = ts.loss_and_grads(state.params, batch, cfg)
-    wave, _ = wave_render(state.params["vocoder_wave"], batch, cfg)
+    wave = wave_render(state.params["vocoder_wave"], batch, cfg)[0]
     leaves = param_leaves(state.params)["vocoder_wave"]
     at = {M: torch.autograd.grad(wave, leaves, retain_graph=True,
                                  grad_outputs=torch.from_numpy(c).to(dev))
           for M, c in cotangents.items()}
-    step = ts.make_train_step(cfg)
+    del wave        # its graph: no autograd graph over the state may stay
+    step = ts.make_train_step(cfg)      # alive when the step is captured
     losses = []
     for _ in range(MH_TRAIN_STEPS):
         state, m = step(state, batch)
@@ -2594,6 +2627,342 @@ def captured_phase(cfg, dev="cuda") -> dict:
     return record
 
 
+# -- the captured training steps (phase 20) ----------------------------------
+
+def training_runs(cfg, dev, params=None, disc=None) -> dict:
+    """{objective: (make_state, eager body, make_step, batch view)} for the
+    joint, GAN and fine-tune steps from ``params`` (default: phase 7's
+    perturbed weights) and ``disc`` (default: the seeded discriminator).
+    ``make_state`` gives a fresh state from the same weights each call;
+    the body updates a state in place and returns the metrics, the step
+    (``StepProgram``) does the same through its program; the view turns a
+    training Batch into the objective's batch (the fine-tune's tuple of
+    the self-vocoding rows)."""
+    import copy
+    import functools
+    import torch
+    from realtime_yukarin_tpu_torch.models.discriminator import (
+        init_discriminator)
+    from realtime_yukarin_tpu_torch.training import full_chain as fc
+    from realtime_yukarin_tpu_torch.training import train_step as ts
+
+    if params is None:
+        params = perturbed_training_params(cfg)
+    if disc is None:
+        disc = init_discriminator(cfg.super_resolution, cfg.dsp,
+                                  torch.Generator().manual_seed(SEED + 1))
+
+    def finetune_state():
+        voc = {k: copy.deepcopy(params[k]).to(dev).train().requires_grad_(
+            True) for k in fc.VOCODERS}
+        return fc.FinetuneState(voc, fc.make_finetune_optimizer(
+            fc.vocoder_leaves(voc), FINETUNE_LR))
+
+    def voc_rows(b):
+        return (b.f0_voc, b.env_voc, b.ap_voc, b.mc_voc, b.wave_voc, b.noise)
+
+    return {
+        "joint": (lambda: ts.init_train_state(params, dev),
+                  functools.partial(ts.joint_step_body, cfg=cfg),
+                  lambda: ts.make_train_step(cfg), lambda b: b),
+        "gan": (lambda: ts.init_gan_train_state(params, disc, dev),
+                functools.partial(ts.gan_step_body, cfg=cfg),
+                lambda: ts.make_gan_train_step(cfg), lambda b: b),
+        "finetune": (finetune_state,
+                     functools.partial(fc.finetune_step_body, cfg=cfg),
+                     lambda: fc.make_finetune_step(cfg), voc_rows)}
+
+
+def states_equal(a, b) -> bool:
+    """Whether two training states hold the same tensors bit for bit:
+    every parameter, moment, step count, EMA and discriminator leaf."""
+    import torch
+    from realtime_yukarin_tpu_torch.training.train_step import state_leaves
+    la, lb = state_leaves(a), state_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def metrics_equal(a: dict, b: dict) -> bool:
+    import torch
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def eager_twice(run, batches) -> bool:
+    """Two eager runs of the body from one snapshot of the state over
+    ``batches``: bit-equal states and metrics after every step."""
+    make_state, body, _, view = run
+    a, b = make_state(), make_state()
+    return all(metrics_equal(body(a, view(x)), body(b, view(x)))
+               and states_equal(a, b) for x in batches)
+
+
+def train_replay_vs_eager(run, batches) -> dict:
+    """The step (its program: captured on CUDA) against the eager body
+    from the same state on ``batches``: ``torch.equal`` on the metrics and
+    every state leaf after each step.  Returns {"mismatched": [step, ...],
+    "step": the step, "state": its state, "batch": the last batch's
+    view}."""
+    make_state, body, make_step, view = run
+    eager, state = make_state(), make_state()
+    step = make_step()
+    mismatched = []
+    for k, x in enumerate(batches):
+        _, m = step(state, view(x))
+        if not (metrics_equal(body(eager, view(x)), m)
+                and states_equal(eager, state)):
+            mismatched.append(k)
+    return {"mismatched": mismatched, "step": step, "state": state,
+            "batch": view(batches[-1])}
+
+
+def analysis_replay_vs_eager(cfg, waves, F: int, dev) -> dict:
+    """``offline_analyze`` at F frames on each of ``waves`` (the first call
+    at a new length runs eagerly, the second captures) against
+    ``offline_analyze_eager``.  Returns {"equal": bool, "program": the
+    length's program}."""
+    import torch
+    from realtime_yukarin_tpu_torch.pipeline import (cached_programs,
+                                                     offline_analyze,
+                                                     offline_analyze_eager)
+    equal = True
+    for w in waves:
+        a = offline_analyze(w, cfg, F, dev)
+        b = offline_analyze_eager(w, cfg, F, dev)
+        equal &= all(torch.equal(getattr(a, k), getattr(b, k))
+                     for k in ("f0", "env", "ap", "mc"))
+    name = f"analysis {F} frames"
+    return {"equal": equal, "program": [p for p in cached_programs()
+                                        if p.name == name][-1]}
+
+
+def synthesis_replay_vs_eager(cfg, feats, dev) -> dict:
+    """``offline_synthesize`` on each of ``feats`` (one length, each with
+    its own noise key) against ``offline_synthesize_eager``.  Returns
+    {"equal": bool, "program": the length's program}."""
+    import torch
+    from realtime_yukarin_tpu_torch.pipeline import (
+        cached_programs, offline_synthesize, offline_synthesize_eager)
+    from realtime_yukarin_tpu_torch.streaming.pipeline import (
+        noise_key_from_seed)
+    equal = True
+    for i, f in enumerate(feats):
+        key = noise_key_from_seed(SEED + i)
+        equal &= torch.equal(offline_synthesize(f, key, cfg),
+                             offline_synthesize_eager(f, key, cfg))
+    name = f"synthesis {feats[0].f0.shape[0]} frames"
+    return {"equal": equal, "program": [p for p in cached_programs()
+                                        if p.name == name][-1]}
+
+
+def captured_training_phase(cfg, dev="cuda", quality_s=None) -> dict:
+    """Phase 20: the training steps and the analysis and synthesis
+    programs against their eager bodies, then eager and captured side by
+    side.  (a) two eager runs of DET_STEPS steps from one state,
+    bit-equal, per objective; (b) TRAIN_REPLAYS replays against the eager
+    body per objective; the analysis program at TRAIN_FRAMES and at a
+    prepared file's bucket length, and ``offline_synthesize``, against
+    their eager bodies; (c) each program's port kernels per replay, as
+    captured, as counted and as ``torch.profiler`` lists them on the
+    device, against the eager step's counts; (d) the steps' p50 / p99
+    eager and captured, device busy and idle share, host launch calls,
+    capture time and pool; ``make_batch`` as its host synthesis and its
+    analysis eagerly and through the program; phase 17 (a)'s preparation
+    of CORPUS_PAIRS pairs with eager analysis and with the programs; the
+    quality recipe's wall time (``quality_s``, phase 17 (c)).  Returns
+    {label: record}, with the launches of (a) and (b) under "launches"."""
+    import pathlib
+    import tempfile
+    import torch
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.pipeline import offline_analyze_eager
+    from realtime_yukarin_tpu_torch.training import corpus, data
+    from realtime_yukarin_tpu_torch.utils.audio_io import read_wav
+
+    dev = torch.device(dev)
+    seconds = TRAIN_FRAMES * cfg.dsp.hop / cfg.dsp.sample_rate
+    hosts = [data.synth_batch(cfg, TRAIN_BATCH, seconds, seed=SEED + 40 + i)
+             for i in range(TRAIN_REPLAYS)]
+    batches = [data.analyze_batch(cfg, *h, device=dev) for h in hosts]
+    runs = training_runs(cfg, dev)
+    fails, programs, record = [], {}, {}
+    cuda.reset_counts()
+    # (a) determinism, (b) replay == eager
+    for name, run in runs.items():
+        same = eager_twice(run, batches[:DET_STEPS])
+        r = train_replay_vs_eager(run, batches)
+        programs[name] = (r["step"].program, run, r)
+        print(f"[captured-train] {name}: two eager runs of {DET_STEPS} steps "
+              f"from one state bit-equal={same}; {TRAIN_REPLAYS} replays vs "
+              f"the eager body bit-equal={not r['mismatched']}"
+              + (f" (steps {r['mismatched']} differ)" if r["mismatched"]
+                 else ""))
+        if not same or r["mismatched"]:
+            fails.append(f"{name}: eager twice equal {same}, replays "
+                         f"{r['mismatched']} differ")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        src, tgt, audio_s = _wav_pairs(root, CORPUS_PAIRS,
+                                       cfg.dsp.sample_rate)
+        bucket = corpus.frame_bucket(int(CORPUS_SECONDS[1]
+                                         * cfg.dsp.sample_rate)
+                                     // cfg.dsp.hop, CORPUS_BUCKET)
+        file_waves = [torch.from_numpy(np.pad(
+            read_wav(str(p), target_rate=cfg.dsp.sample_rate)[0],
+            (0, bucket * cfg.dsp.hop))[: bucket * cfg.dsp.hop])
+            for p in sorted(tgt.glob("*.wav"))[:4]]
+        analyses = {
+            TRAIN_FRAMES: analysis_replay_vs_eager(
+                cfg, [torch.from_numpy(w) for w in hosts[0][0]],
+                TRAIN_FRAMES, dev),
+            bucket: analysis_replay_vs_eager(cfg, file_waves, bucket, dev)}
+        for F, r in analyses.items():
+            print(f"[captured-train] analysis at {F} frames: "
+                  f"{len(file_waves) if F == bucket else TRAIN_BATCH} calls "
+                  f"vs offline_analyze_eager bit-equal={r['equal']}")
+            programs[f"analysis {F}"] = (r["program"], None, None)
+            if not r["equal"]:
+                fails.append(f"analysis {F}")
+        feats = [offline_analyze_eager(w, cfg, bucket, dev)
+                 for w in file_waves[:3]]
+        r = synthesis_replay_vs_eager(cfg, feats, dev)
+        print(f"[captured-train] offline_synthesize at {bucket} frames: 3 "
+              f"calls vs offline_synthesize_eager bit-equal={r['equal']}")
+        programs[f"synthesis {bucket}"] = (r["program"], None, None)
+        if not r["equal"]:
+            fails.append("synthesis")
+        record["launches"] = launch_counts()
+        # (c) kernels per replay: captured, counted, listed; the eager
+        # step's counts
+        for label, (prog, run, rr) in programs.items():
+            captured = {k: prog.kernel_launches.get(k, 0)
+                        for k in launch_counts()}
+            if run is not None:
+                make_state, body, _, view = run
+                st_e = make_state()
+                cuda.reset_counts()
+                body(st_e, rr["batch"])
+                eager = launch_counts()
+                step, state = rr["step"], rr["state"]
+
+                def call(step=step, state=state, b=rr["batch"]):
+                    step(state, b)
+                    torch.cuda.synchronize()
+            else:
+                eager = dict(captured)
+
+                def call(prog=prog):
+                    prog()
+                    torch.cuda.synchronize()
+            want = {k: float(n) for k, n in captured.items()}
+            for _ in range(3):      # the profiler drops events now and then
+                st = profile_stats(call, PROFILE_STEPS)
+                listed = {k: st["port"][k][1] for k in captured}
+                if listed == want:
+                    break
+            cuda.reset_counts()
+            for _ in range(CAPTURE_COUNT):
+                call()
+            counted = launch_counts()
+            ok = (prog.captured and captured == eager
+                  and listed == want and counted == {k: CAPTURE_COUNT * n
+                                  for k, n in captured.items()})
+            print(f"[captured-train] {label}: captured={prog.captured}, "
+                  f"warm-up + capture {prog.capture_s:.3f} s, pool "
+                  f"{prog.pool_bytes / 2 ** 20:.1f} MiB; port kernels per "
+                  f"replay: captured {captured}, eager step {eager}, listed "
+                  f"by torch.profiler {listed}, counted over "
+                  f"{CAPTURE_COUNT} replays {counted}")
+            if not ok:
+                fails.append(f"{label}: kernels per replay captured "
+                             f"{captured}, eager {eager}, listed {listed}, "
+                             f"counted {counted}")
+        # (d) times, eager and captured side by side
+        for name in TRAIN_OBJECTIVES:
+            prog, run, rr = programs[name]
+            make_state, body, _, view = run
+            eager_state, b = make_state(), rr["batch"]
+            step, state = rr["step"], rr["state"]
+
+            def eager(st=eager_state, b=b, body=body):
+                body(st, b)
+                torch.cuda.synchronize()
+
+            def replay(step=step, st=state, b=b):
+                step(st, b)
+                torch.cuda.synchronize()
+
+            rec = {}
+            for how, fn in (("eager", eager), ("captured", replay)):
+                p50, p99 = wall_ms(fn, TRAIN_TIMED)
+                st = profile_stats(fn, PROFILE_STEPS)
+                rec[how] = dict(p50_ms=p50, p99_ms=p99, busy_ms=st["busy_ms"],
+                                idle=st["idle"],
+                                idle_at_p50=1.0 - st["busy_ms"] / p50,
+                                gpu_launches=st["gpu_launches"],
+                                host_launches=st["host_launches"])
+                print(f"[captured-train] {name} step {how} (float32, "
+                      f"{TRAIN_BATCH} x {TRAIN_FRAMES} frames): p50 / p99 "
+                      f"{p50:.3f} / {p99:.3f} ms, device busy "
+                      f"{st['busy_ms']:.3f} ms (torch.profiler), idle share "
+                      f"{st['idle']:.3f} in the profiled window, "
+                      f"{rec[how]['idle_at_p50']:.3f} at the unprofiled p50, "
+                      f"GPU kernels and copies per step "
+                      f"{st['gpu_launches']:.1f}, host launch/copy calls per "
+                      f"step {st['host_launches']:.1f}")
+            rec.update(capture_s=prog.capture_s, pool_mib=prog.pool_bytes
+                       / 2 ** 20)
+            record[name] = rec
+        waves = [torch.from_numpy(w) for w in hosts[0][0] + hosts[0][1]]
+
+        def analysis_eager():
+            for w in waves:
+                offline_analyze_eager(w, cfg, TRAIN_FRAMES, dev)
+            torch.cuda.synchronize()
+
+        def analysis_captured():
+            data.analyze_batch(cfg, *hosts[0], device=dev)
+            torch.cuda.synchronize()
+
+        parts = {"synthesis (host)": lambda: data.synth_batch(
+                     cfg, TRAIN_BATCH, seconds, seed=SEED + 40),
+                 "analysis eager": analysis_eager,
+                 "analysis captured": analysis_captured}
+        rec = {}
+        for part, fn in parts.items():
+            rec[part] = wall_ms(fn, 8)
+            print(f"[captured-train] make_batch {part}: p50 / p99 "
+                  f"{rec[part][0]:.3f} / {rec[part][1]:.3f} ms "
+                  f"({TRAIN_BATCH} pairs of {TRAIN_FRAMES} frames)")
+        record["make_batch"] = rec
+        # phase 17 (a)'s preparation, its analysis eager, then the programs
+        prep = {}
+        programmed = corpus.offline_analyze
+        for how, analyze in (("eager", offline_analyze_eager),
+                             ("captured", programmed)):
+            corpus.offline_analyze = analyze
+            try:
+                t0 = time.perf_counter()
+                corpus.prepare_corpus(str(src), str(tgt),
+                                      str(pathlib.Path(root) / how), cfg,
+                                      bucket_frames=CORPUS_BUCKET,
+                                      verbose=False, device=dev)
+                sync(dev)
+                prep[how] = time.perf_counter() - t0
+            finally:
+                corpus.offline_analyze = programmed
+        print(f"[captured-train] preparation of {CORPUS_PAIRS} pairs "
+              f"({audio_s:.1f} s of audio): analysis eager {prep['eager']:.3f}"
+              f" s, through the programs {prep['captured']:.3f} s")
+        record["prepare_s"] = prep
+    if quality_s is not None:
+        print(f"[captured-train] the quality recipe (phase 17 (c), captured "
+              f"steps and programs): {quality_s:.1f} s")
+        record["quality_s"] = quality_s
+    if fails:
+        raise AssertionError(f"captured training: {fails}")
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -2876,7 +3245,7 @@ def main() -> int:
     first_chunk_phase(cfg)
 
     # 17. the corpus training path and the quality recipe
-    corpus_launches = corpus_phase(cfg, dev, checked)
+    corpus_launches, quality_s = corpus_phase(cfg, dev, checked)
 
     # 18. two ranks on this card over torch.distributed
     t0 = time.perf_counter()
@@ -2889,13 +3258,21 @@ def main() -> int:
     captured_phase(cfg)
     print(f"[captured] phase seconds {time.perf_counter() - t0:.1f}")
 
-    # 20. kernels line (launches: every path's run — the default stream,
+    # 20. the captured training steps and the analysis and synthesis
+    # programs: replay == eager, and side by side
+    t0 = time.perf_counter()
+    captured_train = captured_training_phase(cfg, dev, quality_s)
+    print(f"[captured-train] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 21. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,
     # the batched server, corpus preparation, corpus training, the quality
-    # recipe, and the ranks' serving and training), 21. result line
+    # recipe, the ranks' serving and training, and phase 20's training
+    # replays and analyses), 22. result line
     paths = [launches, train_launches, *offline_launches.values(),
              *stream_launches.values(), batched_launches,
-             *corpus_launches.values(), *multihost_launches.values()]
+             *corpus_launches.values(), *multihost_launches.values(),
+             captured_train["launches"]]
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name],

@@ -27,6 +27,11 @@ after gathering the split), fine-tunes and exports.
 generator under --gan, the fine-tuned tree after --finetune_converted),
 which ``realtime_yukarin_tpu``'s ``load_params`` and this port's
 ``load_params_npz`` both read.
+
+On CUDA each training step (and each fine-tune step) is one device
+program: captured as a CUDA graph at its first call, after the restore
+and the model split, and replayed; a run over several ranks steps eagerly
+and says why.  The first step logs which.
 """
 
 from __future__ import annotations
@@ -52,8 +57,8 @@ from realtime_yukarin_tpu_torch.training.checkpoint import (
 from realtime_yukarin_tpu_torch.training.data import make_batch
 from realtime_yukarin_tpu_torch.training.dataset import CorpusDataset
 from realtime_yukarin_tpu_torch.training.train_step import (
-    init_gan_train_state, init_train_state, make_sharded_gan_step,
-    make_sharded_train_step)
+    init_gan_train_state, init_train_state, make_gan_train_step,
+    make_train_step, shard_train_state)
 
 # a data rank's make_batch seed stride (the JAX package's per-host offset)
 RANK_SEED_STRIDE = 1_000_003
@@ -171,11 +176,8 @@ def main(argv: list[str] | None = None) -> None:
             cfg.super_resolution, cfg.dsp,
             torch.Generator().manual_seed(cfg.seed + 1)))
         state = init_gan_train_state(params, disc, device, args.lr)
-        step_fn, shard_state = make_sharded_gan_step(cfg, mesh,
-                                                     args.adv_weight)
     else:
         state = init_train_state(params, device, args.lr)
-        step_fn, shard_state = make_sharded_train_step(cfg, mesh)
 
     # resume before the split: a checkpoint holds the whole state, and
     # every rank takes rank 0's (no shared file system needed)
@@ -184,7 +186,10 @@ def main(argv: list[str] | None = None) -> None:
         state, start_step = restore_checkpoint_to_all(args.ckpt_dir, state)
         if start_step:
             log(f"[train] resumed from step {start_step}")
-    state = shard_state(state)
+    state = shard_train_state(mesh, state)
+    # the step is captured at its first call, over the state as it is now
+    step_fn = (make_gan_train_step(cfg, args.adv_weight, mesh=mesh)
+               if args.gan else make_train_step(cfg, mesh))
 
     # every rank of a model group feeds the same rows: the seeds follow
     # the data index (the rank itself at model_parallel 1)
@@ -212,6 +217,8 @@ def main(argv: list[str] | None = None) -> None:
     for step in range(start_step, args.steps):
         batch = next_batch(step)
         state, metrics = step_fn(state, batch)
+        if step == start_step:
+            log(f"[train] {step_fn.summary()}")
         if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
             m = {k: float(v) for k, v in metrics.items()}
             rate = (step + 1 - start_step) / (time.perf_counter() - t0)

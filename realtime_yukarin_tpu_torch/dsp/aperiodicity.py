@@ -14,6 +14,7 @@ import torch
 
 from realtime_yukarin_tpu_torch.config import DspConfig
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
+from realtime_yukarin_tpu_torch.dsp.envelope import power_spectrogram
 from realtime_yukarin_tpu_torch.ops import dft
 
 
@@ -41,3 +42,21 @@ def band_aperiodicity_from_power(P: torch.Tensor, f0: torch.Tensor,
     p = r_lag / (r0 + 1e-20) / rho[..., None]
     ap = torch.sqrt(torch.clamp(1.0 - p, 1e-6, 1.0))
     return torch.where((f0 > 0)[..., None], ap, torch.ones_like(ap))
+
+
+def band_aperiodicity(x: torch.Tensor, f0: torch.Tensor, num_frames: int,
+                      cfg: DspConfig, center_offset: int = 0
+                      ) -> torch.Tensor:
+    """x [..., T], f0 [..., F] -> band aperiodicity [..., F, B] in (0, 1]
+    from its own power spectrogram (``dsp/world.py`` shares the
+    envelope's instead)."""
+    P = power_spectrogram(x, num_frames, cfg, center_offset)
+    return band_aperiodicity_from_power(P, f0, cfg)
+
+
+def expand_aperiodicity(ap: torch.Tensor, cfg: DspConfig) -> torch.Tensor:
+    """[..., B] band values -> [..., K] per-bin values (linear in
+    frequency)."""
+    W = dft.device_const(prim.ap_expand_matrix, cfg.sample_rate,
+                         cfg.num_ap_bands, cfg.spec_bins, like=ap)
+    return ap @ W.T

@@ -91,3 +91,26 @@ def log_envelope_and_mcep(P: torch.Tensor, f0: torch.Tensor, cfg: DspConfig
     E = dft.device_const(_folded_mcep_basis, N, cfg.spec_bins,
                          cfg.mcep_order, cfg.mcep_alpha, like=c)
     return c @ D, c @ E
+
+
+def log_envelope_from_power(P: torch.Tensor, f0: torch.Tensor,
+                            cfg: DspConfig) -> torch.Tensor:
+    """Power spectrogram [..., F, K] + f0 [..., F] -> LOG power envelope
+    [..., F, K] (what the mel-cepstrum encode consumes)."""
+    c, _ = _lifted_half_cepstrum(P, f0, cfg)
+    return c @ dft.device_const(dft.cepstrum_inverse_basis, cfg.fft_size,
+                                like=c)
+
+
+def envelope_from_power(P: torch.Tensor, f0: torch.Tensor, cfg: DspConfig
+                        ) -> torch.Tensor:
+    """Power spectrogram [..., F, K] + f0 [..., F] -> power envelope."""
+    return torch.exp(log_envelope_from_power(P, f0, cfg))
+
+
+def spectral_envelope(x: torch.Tensor, f0: torch.Tensor, num_frames: int,
+                      cfg: DspConfig, center_offset: int = 0
+                      ) -> torch.Tensor:
+    """x [..., T] + f0 [..., F] -> power envelope [..., F, K]."""
+    return envelope_from_power(
+        power_spectrogram(x, num_frames, cfg, center_offset), f0, cfg)

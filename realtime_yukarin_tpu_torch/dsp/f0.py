@@ -23,7 +23,9 @@ import torch.nn.functional as Fn
 
 from realtime_yukarin_tpu_torch.config import DspConfig
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
-from realtime_yukarin_tpu_torch.dsp.framing import extract_centered_frames
+from realtime_yukarin_tpu_torch.dsp.envelope import power_spectrogram
+from realtime_yukarin_tpu_torch.dsp.framing import (extract_centered_frames,
+                                                    median3)
 from realtime_yukarin_tpu_torch.ops import dft
 
 # Finite "infinity" for masked min-plus DP (inf - inf = nan; a finite
@@ -225,6 +227,44 @@ def _candidates_from_cmnd(dp: torch.Tensor, e0: torch.Tensor, cfg: DspConfig
     emis = torch.where(cost >= 0.5 * _BIG, torch.full_like(cost, _BIG),
                        torch.clamp((cost - m) * rel, max=cfg.f0_emis_cap))
     return torch.stack(f0s, dim=1), emis
+
+
+def estimate_f0_raw(x: torch.Tensor, num_frames: int, cfg: DspConfig,
+                    center_offset: int = 0) -> torch.Tensor:
+    """Pre-median per-frame F0 [..., F] (0 = unvoiced) of x [..., T]:
+    frame-local, so independent of where the analysis window sits (the
+    streaming layer caches raw values and applies the median itself)."""
+    dp, e0 = _cmnd_and_energy(x, num_frames, cfg, center_offset)
+    return _select_f0_from_cmnd(dp.reshape(-1, dp.shape[-1]),
+                                e0.reshape(-1), cfg).reshape(e0.shape)
+
+
+def f0_candidates(x: torch.Tensor, num_frames: int, cfg: DspConfig,
+                  center_offset: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cand_f0 [..., F, K] in Hz, 0 = an empty slot; emis [..., F, K] the
+    Viterbi emission costs): the K deepest CMND dips per frame, refined as
+    the raw estimate is (the Harvest candidate-lattice role)."""
+    dp, e0 = _cmnd_and_energy(x, num_frames, cfg, center_offset)
+    cand, emis = _candidates_from_cmnd(dp.reshape(-1, dp.shape[-1]),
+                                       e0.reshape(-1), cfg)
+    return (cand.reshape(*e0.shape, cand.shape[-1]),
+            emis.reshape(*e0.shape, emis.shape[-1]))
+
+
+def estimate_f0(x: torch.Tensor, num_frames: int, cfg: DspConfig,
+                center_offset: int = 0) -> torch.Tensor:
+    """x [T] -> f0 [F] in Hz (0 = unvoiced): the raw estimate, its 3-tap
+    median, the candidate-lattice Viterbi, the voicing revision and the
+    full-rate refinement on the power spectrogram (``dsp/world.analyze``'s
+    F0 without the envelope stage)."""
+    raw, cand_f0, cand_cost = f0_raw_and_candidates(x, num_frames, cfg,
+                                                    center_offset)
+    f0, choice = viterbi_snap(median3(raw), cand_f0, cand_cost, cfg)
+    P = power_spectrogram(x, num_frames, cfg, center_offset)
+    f0 = voicing_revision(x, f0, choice, num_frames, cfg, center_offset,
+                          P=P)
+    return refine_f0_from_power(P, f0, cfg)
 
 
 def f0_raw_and_candidates(x: torch.Tensor, num_frames: int, cfg: DspConfig,

@@ -19,9 +19,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as Fn
 
 from realtime_yukarin_tpu_torch.config import AcousticModelConfig
+from realtime_yukarin_tpu_torch.ops.conv import conv1d
 from realtime_yukarin_tpu_torch.parallel.mesh import (column_parallel,
                                                       model_shard)
 
@@ -30,14 +30,16 @@ def conv1d_valid(x: torch.Tensor, conv: nn.Conv1d, dtype: torch.dtype,
                  padding: int = 0) -> torch.Tensor:
     """[(B,) T, C_in] -> [(B,) T + 2*padding - (k-1), C_out]: input and
     kernel cast to ``dtype`` before the conv, bias added in ``dtype``
-    (flax's order).  A weight split over the model group computes this
+    (flax's order); its backward sums in a fixed order
+    (:func:`~realtime_yukarin_tpu_torch.ops.conv.conv1d`).  A weight split
+    over the model group computes this
     rank's output channels and gathers the rest
     (:func:`~realtime_yukarin_tpu_torch.parallel.mesh.column_parallel`)."""
     xt = x.transpose(-1, -2).to(dtype)
     xt = xt if x.ndim == 3 else xt[None]
 
     def local(z):
-        return Fn.conv1d(z, conv.weight.to(dtype), padding=padding)
+        return conv1d(z, conv.weight.to(dtype), padding=padding)
     y = (local(xt) if model_shard(conv) is None
          else column_parallel(conv, xt, local, dim=1))
     y = (y if x.ndim == 3 else y[0]).transpose(-1, -2)

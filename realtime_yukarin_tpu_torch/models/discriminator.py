@@ -15,6 +15,7 @@ import torch.nn.functional as Fn
 
 from realtime_yukarin_tpu_torch.config import DspConfig, SuperResolutionConfig
 from realtime_yukarin_tpu_torch.models.initializers import init_module
+from realtime_yukarin_tpu_torch.ops.conv import conv1d
 from realtime_yukarin_tpu_torch.parallel.mesh import (batch_mean,
                                                       column_parallel,
                                                       model_shard)
@@ -23,16 +24,17 @@ from realtime_yukarin_tpu_torch.parallel.mesh import (batch_mean,
 def conv1d_same_strided(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
     """flax ``nn.Conv(padding="SAME", strides=s)`` on [B, T, C]: ceil(T/s)
     outputs, the (k - 1 + ...) padding split with the smaller half first —
-    (1, 2) for k = 5, s = 2 and even T, (2, 2) for odd T."""
+    (1, 2) for k = 5, s = 2 and even T, (2, 2) for odd T.  The backward
+    sums in a fixed order (``ops/conv.py``)."""
     T = x.shape[-2]
     k, s = conv.kernel_size[0], conv.stride[0]
     out = -(-T // s)
     total = max((out - 1) * s + k - T, 0)
     xt = Fn.pad(x.transpose(-1, -2), (total // 2, total - total // 2))
     if model_shard(conv) is None:
-        y = Fn.conv1d(xt, conv.weight, conv.bias, stride=s)
+        y = conv1d(xt, conv.weight, stride=s) + conv.bias[:, None]
     else:
-        y = column_parallel(conv, xt, lambda z: Fn.conv1d(
+        y = column_parallel(conv, xt, lambda z: conv1d(
             z, conv.weight, stride=s), dim=1) + conv.bias[:, None]
     return y.transpose(-1, -2)
 

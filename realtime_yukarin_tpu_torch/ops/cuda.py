@@ -11,7 +11,10 @@ The libraries are loaded with ``ctypes``.  A launcher takes the tensors'
 
 Launches inside a CUDA graph capture (``streaming/program.py``) are
 recorded by :func:`capturing` instead of counted, and counted again on
-every replay of the graph, so ``launches`` means launches that ran.
+every replay of the graph, so ``launches`` means launches that ran.  The
+record is kept per capturing stream, not per thread: a backward captured
+with its forward runs on autograd's own worker thread, on the same
+stream.
 
 Nothing is compiled or loaded at import time: the CPU tests import every
 module of the port on a machine with no ``nvcc`` and no card.
@@ -97,14 +100,15 @@ class CudaKernel:
     def launch(self, *args) -> None:
         """Call the launcher on the current stream; raise on a CUDA error."""
         fn = self._load()
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = current_stream()
         code = fn(*args, stream)
         if code != 0:
             raise RuntimeError(f"{self.name}: CUDA error {code} "
                                f"({self._err(code).decode()})")
-        capture = getattr(_thread, "capture", None)
+        capture = _capture_on(stream)
         if capture is not None:
-            capture.launches.append((self, args))
+            with _lock:
+                capture.launches.append((self, args))
         elif torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{self.name}: launched in a CUDA graph "
                                f"capture outside cuda.capturing(), whose "
@@ -119,7 +123,7 @@ class CudaKernel:
 
 
 class Capture:
-    """What one graph capture on this thread recorded: each kernel launch
+    """What one graph capture on a stream recorded: each kernel launch
     as (kernel, launcher arguments), and the cached device constants the
     captured work reads, which the graph must keep alive because it holds
     their addresses."""
@@ -134,27 +138,49 @@ class Capture:
             kernel.count(args)
 
 
-_thread = threading.local()
+# the open capture records, by the handle of the stream being captured
+_captures: dict[int, Capture] = {}
+_lock = threading.Lock()
+
+
+def current_stream() -> int:
+    """The handle of this thread's current CUDA stream."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _capture_on(stream: int) -> Capture | None:
+    if not _captures:
+        return None
+    with _lock:
+        return _captures.get(stream)
 
 
 @contextlib.contextmanager
-def capturing():
+def capturing(stream: int):
     """Record into a fresh :class:`Capture`, instead of counting, every
-    launch this thread makes in the block (a graph capture)."""
+    launch made in the block on the stream with handle ``stream`` (the
+    graph capture's), from whichever thread makes it."""
     capture = Capture()
-    _thread.capture = capture
+    with _lock:
+        if stream in _captures:
+            raise RuntimeError(f"stream {stream:#x} is already recorded")
+        _captures[stream] = capture
     try:
         yield capture
     finally:
-        _thread.capture = None
+        with _lock:
+            del _captures[stream]
 
 
 def hold(*tensors: torch.Tensor) -> None:
     """Keep ``tensors`` (cached constants) alive for as long as the graph
-    being captured on this thread, if one is."""
-    capture = getattr(_thread, "capture", None)
+    being captured on the current stream, if one is."""
+    if not _captures:
+        return
+    capture = _capture_on(current_stream())
     if capture is not None:
-        capture.held.extend(tensors)
+        with _lock:
+            capture.held.extend(tensors)
 
 
 # the bank kernels' ints after (R, H, hop): their tiling,

@@ -21,7 +21,9 @@ static buffers and replays.  A conversion made once (``cli.convert``)
 thus pays nothing for a capture.  Lengths are kept by what JAX makes
 static, the least recently used dropped beyond ``PROGRAM_CACHE_SIZE``
 (JAX's cache is unbounded; a graph's pool per length is device memory).
-``offline_analyze`` and ``offline_synthesize`` stay eager.
+:func:`offline_analyze` and :func:`offline_synthesize`, the counterparts
+of ``realtime_yukarin_tpu/pipeline.py:97`` and ``:103``, are programs per
+length the same way, in the same cache.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.state import (StreamGeometry,
                                                         input_plan,
                                                         noise_bins,
-                                                        output_plan)
+                                                        output_plan,
+                                                        tree_copy_, tree_map)
 
 
 def _extend_one_frame(feat: AcousticFeature) -> AcousticFeature:
@@ -76,14 +79,32 @@ PROGRAM_CACHE_SIZE = 8
 
 class _Program(NamedTuple):
     program: CapturedProgram
-    wave: torch.Tensor           # static input: the wave
-    key: torch.Tensor            # static input: the noise key, int64 [3]
+    inputs: object               # static input: the wave (the features,
+    #                              for a synthesis)
+    key: torch.Tensor | None     # static input: the noise key, int64 [3]
     leaves: tuple                # the params' tensors, kept alive: the
     #                              graph holds their addresses
 
 
 # signature -> its _Program, or None for a length seen once (run eagerly)
 _programs: collections.OrderedDict = collections.OrderedDict()
+
+
+def _program_for(sig: tuple, build, device: torch.device):
+    """The entry cached under ``sig``: None the first time ``sig`` is seen
+    (the caller runs eagerly), ``build()`` the second time, the cached
+    entry after; the least recently used signature goes beyond
+    ``PROGRAM_CACHE_SIZE``."""
+    seen = sig in _programs
+    entry = _programs.pop(sig, None)
+    if seen and entry is None:
+        entry = build()
+    _programs[sig] = entry
+    if len(_programs) > PROGRAM_CACHE_SIZE:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)   # no replay of it in flight
+        _programs.popitem(last=False)
+    return entry
 
 
 def _tensors(tree) -> list:
@@ -119,27 +140,23 @@ def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
     leaves = tuple(_tensors(params))
     sig = (tuple(wave.shape), num_frames, use_sr, mode, cfg, str(device),
            tuple(t.data_ptr() for t in leaves))
-    seen = sig in _programs
-    entry = _programs.pop(sig, None)
-    if seen and entry is None:
+
+    def build():
         buf = wave.clone()
         key = torch.tensor(noise_key, dtype=torch.int64, device=device)
-        entry = _Program(CapturedProgram(
+        return _Program(CapturedProgram(
             lambda: offline_convert_eager(params, buf, key, cfg, num_frames,
                                           use_sr, vocoder_mode=mode,
                                           device=device),
             device=device, name=f"offline {num_frames} frames ({mode})"),
             buf, key, leaves)
-    _programs[sig] = entry
-    if len(_programs) > PROGRAM_CACHE_SIZE:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)   # no replay of it in flight
-        _programs.popitem(last=False)
+
+    entry = _program_for(sig, build, device)
     if entry is None:
         return offline_convert_eager(params, wave, noise_key, cfg,
                                      num_frames, use_sr, vocoder_mode=mode,
                                      device=device)
-    entry.wave.copy_(wave)
+    entry.inputs.copy_(wave)
     entry.key.copy_(torch.as_tensor(noise_key, dtype=torch.int64))
     return entry.program()
 
@@ -199,19 +216,71 @@ def offline_convert_io(params: dict, wave_in, noise_key: tuple[int, int, int],
     return resample_signal(y, output_plan(cfg.dsp, geo.chunk_samples))
 
 
-@torch.no_grad()
 def offline_analyze(wave, cfg: Config, num_frames: int, device=None
                     ) -> AcousticFeature:
-    """wave [T] -> the AcousticFeature of ``num_frames`` frames."""
+    """wave [T] -> the AcousticFeature of ``num_frames`` frames (the
+    caller's tensors): :func:`offline_analyze_eager`, run eagerly the
+    first time (T, num_frames, cfg.dsp, the device) is seen and through
+    the program captured for it from the second time on."""
+    device = resolve_device(device)
+    wave = _on(wave, device)
+    sig = ("analyze", tuple(wave.shape), num_frames, cfg.dsp, str(device))
+
+    def build():
+        buf = wave.clone()
+        return _Program(CapturedProgram(
+            lambda: offline_analyze_eager(buf, cfg, num_frames, device),
+            device=device, name=f"analysis {num_frames} frames"),
+            buf, None, ())
+
+    entry = _program_for(sig, build, device)
+    if entry is None:
+        return offline_analyze_eager(wave, cfg, num_frames, device)
+    entry.inputs.copy_(wave)
+    return entry.program()
+
+
+@torch.no_grad()
+def offline_analyze_eager(wave, cfg: Config, num_frames: int, device=None
+                          ) -> AcousticFeature:
+    """:func:`offline_analyze`'s body, run eagerly: the reference its
+    replays are held to."""
     return analyze(_on(wave, resolve_device(device)), num_frames, cfg.dsp)
 
 
-@torch.no_grad()
 def offline_synthesize(feat: AcousticFeature,
                        noise_key: tuple[int, int, int], cfg: Config
                        ) -> torch.Tensor:
-    """DSP render of ``feat`` (F frames, on its own device) ->
-    [F * hop]."""
+    """DSP render of ``feat`` (F frames, on its own device) -> [F * hop],
+    the caller's tensor: :func:`offline_synthesize_eager`, run eagerly the
+    first time (F, cfg.dsp, the device) is seen and through the program
+    captured for it from the second time on."""
+    device = feat.f0.device
+    sig = ("synthesize", tuple(feat.f0.shape), cfg.dsp, str(device))
+
+    def build():
+        static = tree_map(torch.clone, feat)
+        key = torch.tensor(noise_key, dtype=torch.int64, device=device)
+        return _Program(CapturedProgram(
+            lambda: offline_synthesize_eager(static, key, cfg),
+            device=device,
+            name=f"synthesis {feat.f0.shape[0]} frames"), static, key, ())
+
+    entry = _program_for(sig, build, device)
+    if entry is None:
+        return offline_synthesize_eager(feat, noise_key, cfg)
+    tree_copy_(entry.inputs, feat)
+    entry.key.copy_(torch.as_tensor(noise_key, dtype=torch.int64))
+    return entry.program()
+
+
+@torch.no_grad()
+def offline_synthesize_eager(feat: AcousticFeature,
+                             noise_key: tuple[int, int, int] | torch.Tensor,
+                             cfg: Config) -> torch.Tensor:
+    """:func:`offline_synthesize`'s body, run eagerly: the reference its
+    replays are held to.  ``noise_key`` is (offset, stride, shift) or an
+    int64 tensor [3] on the features' device."""
     ext = _extend_one_frame(feat)
     noise = frame_noise(noise_key, 0, feat.f0.shape[0], noise_bins(cfg),
                         like=ext.env)

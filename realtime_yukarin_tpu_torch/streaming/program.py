@@ -6,15 +6,21 @@ donated, so XLA updates it in place: the streaming step
 (``realtime_yukarin_tpu/streaming/pipeline.py:1-8``, ``:259-262``:
 ``jax.jit(..., donate_argnames=("carry",))``), the batched step
 (``realtime_yukarin_tpu/parallel/serving.py:79``: ``jax.jit(step,
-donate_argnums=(2,))``) and offline conversion
-(``realtime_yukarin_tpu/pipeline.py:44``, ``:72``: jitted per static
-``num_frames``).  Here a :class:`CapturedProgram` runs a body over static
-buffers: the inputs the caller copies in before each call, the state
-(carry) the body updates in place, and the output the body returns.  On
-CUDA the body is captured once as a ``torch.cuda.CUDAGraph``, so a call
-is one graph launch instead of ~1200 kernel launches; on the CPU the same
-body runs eagerly over the same buffers.  A capture that fails raises:
-nothing falls back to eager execution on CUDA.
+donate_argnums=(2,))``), offline conversion, analysis and synthesis
+(``realtime_yukarin_tpu/pipeline.py:44``, ``:72``, ``:97``, ``:103``:
+jitted per static ``num_frames``) and the training steps
+(``realtime_yukarin_tpu/training/train_step.py:308``, ``:336``:
+``jax.jit(step, donate_argnums=(0,))``).  Here a :class:`CapturedProgram`
+runs a body over static buffers: the inputs the caller copies in before
+each call, the state (carry, or a training state's parameters and
+optimizer moments) the body updates in place, and the output the body
+returns.  On CUDA the body is captured once as a ``torch.cuda.CUDAGraph``,
+so a call is one graph launch instead of ~1200 kernel launches; on the CPU
+the same body runs eagerly over the same buffers.  A training body
+differentiates (``differentiable=True``): its forward, its backward (run
+by autograd on its own thread, on the capturing stream) and its optimizer
+steps are captured together.  A capture that fails raises: nothing falls
+back to eager execution on CUDA.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ import time
 import torch
 
 from realtime_yukarin_tpu_torch.ops import cuda
-from realtime_yukarin_tpu_torch.streaming.state import snapshot, tree_copy_
+from realtime_yukarin_tpu_torch.streaming.state import (snapshot, tree_copy_,
+                                                        tree_map)
 
 
 def _pool_bytes(pool) -> int:
@@ -38,27 +45,31 @@ class CapturedProgram:
     """``body()`` as one device program over static buffers.
 
     ``body`` takes no arguments: it reads the static input tensors and the
-    ``state`` tree, updates ``state`` in place (``tree_copy_``) and
-    returns its output tensor.  On CUDA, unless the caller gives an
-    ``eager_reason`` (why the body cannot be captured), the constructor
-    builds the kernels, warms the body up (:meth:`warm_up`: one call
-    fills the host-constant caches and the kernel plans), then
-    captures it under ``torch.no_grad()`` into a private memory pool.  The
-    warm-up and the capture run on the real state, so it is snapshot first
-    and put back after each.  Each call then replays the graph on the
-    current stream, counts the kernels the capture launched
-    (``ops/cuda.py``) and returns a clone of the output, which the caller
-    owns, as JAX returns fresh arrays.  Otherwise a call runs the body
-    eagerly under ``no_grad``.
+    ``state`` tree, updates ``state`` in place (``tree_copy_``, or a
+    training step's in-place optimizer update) and returns its output: a
+    tensor, or a tuple, dict or dataclass of them.  On CUDA, unless the
+    caller gives an ``eager_reason`` (why the body cannot be captured), the
+    constructor builds the kernels, warms the body up (:meth:`warm_up`:
+    one call fills the host-constant caches and the kernel plans), then
+    captures it into a private memory pool, under ``torch.no_grad()``
+    unless the body is ``differentiable``.  The warm-up and the capture run
+    on the real state, so it is snapshot first and put back after each.
+    Each call then replays the graph on the current stream, counts the
+    kernels the capture launched (``ops/cuda.py``) and returns a clone of
+    the output, which the caller owns, as JAX returns fresh arrays.
+    Otherwise a call runs the body eagerly, under ``no_grad`` unless it is
+    ``differentiable``.
     """
 
     def __init__(self, body, state=None, device="cpu", name: str = "",
-                 eager_reason: str | None = None):
+                 eager_reason: str | None = None,
+                 differentiable: bool = False):
         self._body = body
         self.state = state
         self.device = torch.device(device)
         self.name = name
         self.eager_reason = eager_reason
+        self.differentiable = differentiable
         self.capture_s = 0.0       # warm-up plus capture, seconds
         self.pool_bytes = 0        # the graph's private pool
         self._graph = None
@@ -83,17 +94,27 @@ class CapturedProgram:
             counts[kernel.name] = counts.get(kernel.name, 0) + 1
         return counts
 
+    def _grad_mode(self):
+        return (torch.enable_grad() if self.differentiable
+                else torch.no_grad())
+
+    def _restore(self, saved) -> None:
+        with torch.no_grad():            # parameters are leaves
+            tree_copy_(self.state, saved)
+
     def warm_up(self):
         """Run the body once on the real state, then put the state back: a
-        snapshot is taken first, so ``frame_pos`` and the caches have not
+        snapshot is taken first, so ``frame_pos`` and the caches (or a
+        training state's parameters, moments and step counts) have not
         moved on when the capture begins.  The call fills the
         host-constant caches and the kernel plans, so the capture neither
         allocates a constant nor copies from the host; the capture itself
         refuses a host sync or a pageable copy
         (``capture_error_mode="thread_local"``).  On CUDA the call runs on
         a side stream.  Returns the snapshot."""
-        saved = snapshot(self.state)
         with torch.no_grad():
+            saved = snapshot(self.state)
+        with self._grad_mode():
             if self.device.type != "cuda":
                 self._body()
             else:
@@ -103,7 +124,7 @@ class CapturedProgram:
                 with torch.cuda.stream(side):
                     self._body()
                 main.wait_stream(side)
-        tree_copy_(self.state, saved)
+        self._restore(saved)
         return saved
 
     def _capture_graph(self) -> None:
@@ -112,32 +133,34 @@ class CapturedProgram:
         saved = self.warm_up()
         pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.device)
         # a program's body refers back to its owner, so a dropped stream or
         # server is freed by the cyclic collector, which must not destroy
         # its graph in the middle of this capture (that invalidates it)
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.no_grad(), cuda.capturing() as capture:
-                with torch.cuda.graph(graph, pool=pool,
-                                      capture_error_mode="thread_local"):
-                    out = self._body()
+            with self._grad_mode(), \
+                    cuda.capturing(side.cuda_stream) as capture, \
+                    torch.cuda.graph(graph, pool=pool, stream=side,
+                                     capture_error_mode="thread_local"):
+                out = self._body()
         finally:
             if collecting:
                 gc.enable()
-        tree_copy_(self.state, saved)
+        self._restore(saved)
         torch.cuda.synchronize(self.device)
         self._graph, self._capture, self._out = graph, capture, out
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = _pool_bytes(pool)
 
-    def __call__(self) -> torch.Tensor:
+    def __call__(self):
         if self._graph is None:
-            with torch.no_grad():
+            with self._grad_mode():
                 return self._body()
         self._graph.replay()
         self._capture.replayed()
-        return self._out.clone()
+        return tree_map(torch.clone, self._out)
 
     def summary(self) -> str:
         """One line: how the program runs, its capture time and pool."""

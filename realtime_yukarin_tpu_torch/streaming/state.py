@@ -214,14 +214,18 @@ def noise_bins(cfg: Config) -> int:
 
 def tree_map(fn, tree, *rest):
     """``fn`` over the tensors of a carry (a :class:`StreamCarry`, its
-    synthesizer carries and tuples of them), leaf by leaf across ``tree``
-    and ``rest``; None leaves stay None."""
+    synthesizer carries and tuples of them) or of a program's inputs and
+    outputs (dataclasses, tuples and dicts of tensors), leaf by leaf across
+    ``tree`` and ``rest``; None leaves stay None."""
     if tree is None:
         return None
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     if isinstance(tree, tuple):
         return tuple(tree_map(fn, *leaves) for leaves in zip(tree, *rest))
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     return type(tree)(**{
         f.name: tree_map(fn, getattr(tree, f.name),
                          *(getattr(r, f.name) for r in rest))

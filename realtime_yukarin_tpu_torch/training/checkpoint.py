@@ -6,6 +6,9 @@ step, and for the GAN the discriminator and the EMA generator) round-trips
 through one ``torch.save`` file, read back with ``weights_only=True``.
 Restore loads into a template state (from init), which validates the
 structure: every module loads strictly, a missing or extra key raises.
+It writes into the template's own tensors, the optimizers' moments and
+step counts included, so a step captured over the template
+(``training/train_step.py:StepProgram``) reads the restored state.
 
 Layout: ``<dir>/ckpt_<step>.pt`` with a ``latest`` pointer file; ``keep``
 bounds retention.
@@ -45,10 +48,31 @@ def _to_saved(value):
     return value
 
 
+def _load_optimizer(opt: torch.optim.Optimizer, saved: dict) -> None:
+    """``opt.load_state_dict(saved)`` (which checks the structure and puts
+    each state tensor where ``opt``'s policy wants it, e.g. a
+    ``capturable`` step count on the device), then each loaded state
+    tensor copied into the one ``opt`` held before, which goes back in its
+    place: the tensors' addresses stay."""
+    ensure_optimizer_state(opt)
+    held = {p: dict(st) for p, st in opt.state.items()}
+    opt.load_state_dict(saved)
+    with torch.no_grad():
+        for p, st in opt.state.items():
+            for k, v in st.items():
+                old = held.get(p, {}).get(k)
+                if (isinstance(old, torch.Tensor)
+                        and old.shape == v.shape and old.dtype == v.dtype):
+                    st[k] = old.copy_(v)
+
+
 def _load_into(template, saved, where: str):
     """``saved`` loaded into ``template`` (in place where it holds
     tensors); returns the value to keep."""
-    if isinstance(template, (nn.Module, torch.optim.Optimizer)):
+    if isinstance(template, torch.optim.Optimizer):
+        _load_optimizer(template, saved)
+        return template
+    if isinstance(template, nn.Module):
         template.load_state_dict(saved)
         return template
     if isinstance(template, dict):

@@ -3,7 +3,9 @@
 
 Every utterance of the source and target speakers is analysed on the
 given device (on the card: one launch each of the power-spectrum and
-envelope-cepstrum kernels per file, over all its frames), same-stem
+envelope-cepstrum kernels per file, over all its frames, inside the
+analysis program of ``pipeline.offline_analyze`` for its bucket's
+length), same-stem
 pairs are DTW-aligned (``training/align.py``), and per-speaker F0
 statistics are written as ``stats_input.npz`` / ``stats_target.npz``.
 
@@ -21,8 +23,9 @@ import numpy as np
 import torch
 
 from realtime_yukarin_tpu_torch.config import Config
-from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature, analyze
+from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature
 from realtime_yukarin_tpu_torch.models.f0_stats import F0Statistics
+from realtime_yukarin_tpu_torch.pipeline import offline_analyze
 from realtime_yukarin_tpu_torch.streaming.pipeline import resolve_device
 from realtime_yukarin_tpu_torch.training.align import align_pair
 from realtime_yukarin_tpu_torch.utils.audio_io import read_wav
@@ -51,7 +54,7 @@ def analyze_file(path: str | pathlib.Path, cfg: Config,
     if pad > 0:
         x = np.concatenate([x, np.zeros(pad, np.float32)])
     x = np.asarray(x[: F * hop], np.float32)
-    feat = analyze(torch.from_numpy(x).to(device), F, cfg.dsp)
+    feat = offline_analyze(torch.from_numpy(x), cfg, F, device)
     return feat, true_frames, x
 
 

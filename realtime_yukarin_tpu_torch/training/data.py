@@ -4,7 +4,8 @@
 Two kinds of pairs.  ``make_batch``: a "source speaker" harmonic+noise
 utterance and a "target speaker" version with another F0 and spectral
 tilt, analysed by the port's ``dsp/world.py`` on the given device (on the
-card: the power-spectrum and envelope-cepstrum kernels).  The formant
+card: the power-spectrum and envelope-cepstrum kernels, inside the
+analysis program of ``pipeline.offline_analyze``).  The formant
 corpus (``formant_utterance``, ``build_formant_corpus``): formant-
 synthesised two-speaker WAVs, prepared by ``training/corpus.py``.  Every
 waveform and the renderer's noise come from numpy generators drawn in the
@@ -18,7 +19,7 @@ import torch
 
 from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
-from realtime_yukarin_tpu_torch.dsp.world import analyze
+from realtime_yukarin_tpu_torch.pipeline import offline_analyze
 from realtime_yukarin_tpu_torch.streaming.pipeline import resolve_device
 from realtime_yukarin_tpu_torch.training.train_step import Batch
 
@@ -152,40 +153,52 @@ def build_formant_corpus(root, cfg: Config, n_train: int = 6,
     return dirs
 
 
-def make_batch(cfg: Config, batch_size: int, seconds: float = 0.5,
-               seed: int = 0, f0_ratio: float = 1.4, tilt_src: float = 0.1,
-               tilt_tgt: float = 0.3, device=None) -> Batch:
-    """Analyse ``batch_size`` seeded source/target pairs into a training
-    Batch on ``device`` (``cuda`` unless the caller names another)."""
-    device = resolve_device(device)
+def synth_batch(cfg: Config, batch_size: int, seconds: float = 0.5,
+                seed: int = 0, f0_ratio: float = 1.4, tilt_src: float = 0.1,
+                tilt_tgt: float = 0.3
+                ) -> tuple[list[np.ndarray], list[np.ndarray], np.ndarray]:
+    """The host half of :func:`make_batch`: ``batch_size`` seeded
+    source/target utterances cut to F whole frames, and the renderer's
+    noise [B, F, k_noise, 2], drawn in the JAX package's order."""
     rng = np.random.default_rng(seed)
     fs = cfg.dsp.sample_rate
     hop = cfg.dsp.hop
     F = int(seconds * fs) // hop
     k_noise = prim.noise_fft_size(hop) // 2 + 1
+    srcs, tgts = [], []
+    for _ in range(batch_size):
+        base = rng.uniform(110, 220)
+        srcs.append(synth_utterance(rng, seconds, fs, base, tilt_src)[
+            : F * hop])
+        tgts.append(synth_utterance(rng, seconds, fs, base * f0_ratio,
+                                    tilt_tgt)[: F * hop])
+    noise = rng.standard_normal((batch_size, F, k_noise, 2)).astype(
+        np.float32)
+    return srcs, tgts, noise
+
+
+def analyze_batch(cfg: Config, srcs: list[np.ndarray],
+                  tgts: list[np.ndarray], noise: np.ndarray,
+                  device=None) -> Batch:
+    """The device half of :func:`make_batch`: each utterance analysed by
+    :func:`~realtime_yukarin_tpu_torch.pipeline.offline_analyze` (all of
+    one length: one program, replayed 2·B times), stacked into a Batch on
+    ``device``."""
+    device = resolve_device(device)
+    F = noise.shape[1]
 
     def ext(a):
         return torch.cat([a, a[-1:]])
 
     src_f = {"f0": [], "mc": [], "ap": []}
     tgt_f = {"f0": [], "mc": [], "env": [], "ap": []}
-    waves = []
-    for _ in range(batch_size):
-        base = rng.uniform(110, 220)
-        src = synth_utterance(rng, seconds, fs, base, tilt_src)
-        tgt = synth_utterance(rng, seconds, fs, base * f0_ratio, tilt_tgt)
-        fs_feat = analyze(torch.from_numpy(src[: F * hop]).to(device), F,
-                          cfg.dsp)
-        ft_feat = analyze(torch.from_numpy(tgt[: F * hop]).to(device), F,
-                          cfg.dsp)
+    for src, tgt in zip(srcs, tgts):
+        fs_feat = offline_analyze(torch.from_numpy(src), cfg, F, device)
+        ft_feat = offline_analyze(torch.from_numpy(tgt), cfg, F, device)
         for k in src_f:
             src_f[k].append(ext(getattr(fs_feat, k)))
         for k in tgt_f:
             tgt_f[k].append(ext(getattr(ft_feat, k)))
-        waves.append(tgt[: F * hop])
-
-    noise = rng.standard_normal((batch_size, F, k_noise, 2)).astype(
-        np.float32)
     src_f = {k: torch.stack(v) for k, v in src_f.items()}
     tgt_f = {k: torch.stack(v) for k, v in tgt_f.items()}
     # self-vocoding rows coincide with the target utterance's own features
@@ -196,5 +209,17 @@ def make_batch(cfg: Config, batch_size: int, seconds: float = 0.5,
         f0_tgt=tgt_f["f0"], mc_tgt=tgt_f["mc"], env_tgt=tgt_f["env"],
         f0_voc=tgt_f["f0"], mc_voc=tgt_f["mc"], ap_voc=tgt_f["ap"],
         env_voc=tgt_f["env"],
-        wave_voc=torch.from_numpy(np.stack(waves)).to(device),
+        wave_voc=torch.from_numpy(np.stack(tgts)).to(device),
         noise=torch.from_numpy(noise).to(device))
+
+
+def make_batch(cfg: Config, batch_size: int, seconds: float = 0.5,
+               seed: int = 0, f0_ratio: float = 1.4, tilt_src: float = 0.1,
+               tilt_tgt: float = 0.3, device=None) -> Batch:
+    """Analyse ``batch_size`` seeded source/target pairs into a training
+    Batch on ``device`` (``cuda`` unless the caller names another):
+    :func:`synth_batch` on the host, then :func:`analyze_batch`."""
+    device = resolve_device(device)
+    return analyze_batch(cfg, *synth_batch(cfg, batch_size, seconds, seed,
+                                           f0_ratio, tilt_src, tilt_tgt),
+                         device=device)

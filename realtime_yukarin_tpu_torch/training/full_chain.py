@@ -18,6 +18,8 @@ tiny-config training recipe of the held-out gates and
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
 import pathlib
 
 import numpy as np
@@ -25,11 +27,12 @@ import torch
 
 from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
-from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature, analyze
+from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature
 from realtime_yukarin_tpu_torch.models.vocoder_nn import neural_vocode
 from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
 from realtime_yukarin_tpu_torch.models.voice_changer import (
     convert_features, params_to)
+from realtime_yukarin_tpu_torch.pipeline import offline_analyze
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     frame_noise, noise_key_from_seed, resolve_device)
 from realtime_yukarin_tpu_torch.streaming.state import (StreamGeometry,
@@ -37,7 +40,8 @@ from realtime_yukarin_tpu_torch.streaming.state import (StreamGeometry,
 from realtime_yukarin_tpu_torch.training import evaluate, losses
 from realtime_yukarin_tpu_torch.training.align import dtw_path
 from realtime_yukarin_tpu_torch.training.dataset import crop_rows
-from realtime_yukarin_tpu_torch.training.train_step import gradients
+from realtime_yukarin_tpu_torch.training.train_step import (
+    StepProgram, deterministic, gradients, optimizer_step)
 
 VOCODERS = ("vocoder", "vocoder_wave")
 FINETUNE_MAX_NORM = 1.0     # optax.clip_by_global_norm(1.0)
@@ -96,7 +100,7 @@ def full_chain_metrics(params: dict, cfg: Config, src_wave: np.ndarray,
         y = stream_convert(params, cfg, src_wave, use_sr, mode, seed,
                            device)
         F = len(y) // hop
-        feat = analyze(_on(y[: F * hop], device), F, cfg.dsp)
+        feat = offline_analyze(y[: F * hop], cfg, F, device)
         sl = slice(trim, min(F, F_ho) - trim)
         f0m = evaluate.f0_metrics(feat.f0[sl], f0_tgt[sl])
         out[mode] = {
@@ -236,8 +240,10 @@ def finetune_loss(voc: dict, batch: tuple, cfg: Config) -> torch.Tensor:
 
 def make_finetune_optimizer(leaves: list[torch.Tensor], lr: float
                             ) -> torch.optim.Adam:
-    """Plain Adam (optax's b1, b2, eps; no weight decay) over ``leaves``."""
-    return torch.optim.Adam(leaves, lr=lr)
+    """Plain Adam (optax's b1, b2, eps; no weight decay) over ``leaves``,
+    ``capturable`` on CUDA (its step counts on the device)."""
+    return torch.optim.Adam(leaves, lr=lr,
+                            capturable=leaves[0].device.type == "cuda")
 
 
 def finetune_step(opt: torch.optim.Optimizer, leaves: list[torch.Tensor],
@@ -249,8 +255,41 @@ def finetune_step(opt: torch.optim.Optimizer, leaves: list[torch.Tensor],
     keep = norm < FINETUNE_MAX_NORM
     for p, g in zip(leaves, grads):
         p.grad = torch.where(keep, g, g / norm * FINETUNE_MAX_NORM)
-    opt.step()
+    optimizer_step(opt)
     opt.zero_grad(set_to_none=True)
+
+
+@dataclasses.dataclass
+class FinetuneState:
+    voc: dict                      # the two vocoder subtrees (trainable)
+    opt: torch.optim.Optimizer     # make_finetune_optimizer over voc
+    step: int = 0
+
+
+def vocoder_leaves(voc: dict) -> list[torch.Tensor]:
+    """Both vocoders' parameters, in the fine-tune optimizer's order."""
+    return [p for k in VOCODERS for p in voc[k].parameters()]
+
+
+def finetune_step_body(state: FinetuneState, batch: tuple, cfg: Config
+                       ) -> dict:
+    """One fine-tune step on ``state`` in place: the loss's gradients
+    (deterministic), the global-norm clip and Adam.  The eager body
+    :func:`make_finetune_step` captures.  Returns {"loss": ...}."""
+    with deterministic():
+        loss = finetune_loss(state.voc, batch, cfg)
+        grads = gradients(loss, state.voc)
+    finetune_step(state.opt, vocoder_leaves(state.voc),
+                  [g for k in VOCODERS for g in grads[k]])
+    return {"loss": loss.detach()}
+
+
+def make_finetune_step(cfg: Config) -> StepProgram:
+    """step(state, batch) -> (state, metrics) for the fine-tune: one
+    device program on CUDA (the counterpart of the JAX package's jitted
+    ``step``, ``realtime_yukarin_tpu/training/full_chain.py:252``)."""
+    return StepProgram(functools.partial(finetune_step_body, cfg=cfg),
+                       "vocoder fine-tune step")
 
 
 def finetune_vocoder_on_converted(params: dict, cfg: Config,
@@ -273,13 +312,13 @@ def finetune_vocoder_on_converted(params: dict, cfg: Config,
     rng = np.random.default_rng(seed)
     voc = {k: copy.deepcopy(params[k]).to(device).train().requires_grad_(True)
            for k in VOCODERS}
-    leaves = [p for k in VOCODERS for p in voc[k].parameters()]
-    opt = make_finetune_optimizer(leaves, lr)
+    state = FinetuneState(voc, make_finetune_optimizer(vocoder_leaves(voc),
+                                                       lr))
+    step = make_finetune_step(cfg)
     for _ in range(steps):
         batch = tuple(_on(a, device) for a in finetune_batches(
             pairs, hop, k_noise, crop_frames, batch_size, rng))
-        grads = gradients(finetune_loss(voc, batch, cfg), voc)
-        finetune_step(opt, leaves, [g for k in VOCODERS for g in grads[k]])
+        state, _ = step(state, batch)
     return params_to(dict(params, **voc), device)
 
 

@@ -11,7 +11,14 @@ top-level subtree, then AdamW steps, as ``optax.chain(clip_per_stage(1.0),
 optax.adamw(lr, weight_decay=1e-5))``.
 
 PyTorch's parameters are mutable, so a step updates its state in place
-and returns it.
+and returns it.  On CUDA a step is one device program
+(:class:`StepProgram`, the counterpart of the JAX package's ``jax.jit(step,
+donate_argnums=(0,))``, ``realtime_yukarin_tpu/training/train_step.py:308``
+and ``:336``): the forward, the backward with kernel 4 inside, the clip,
+AdamW (``capturable`` on CUDA, so its step counts live on the device) and
+the GAN step's EMA are captured once as a CUDA graph over the state's own
+tensors and replayed per step.  The gradients are the same on every run
+(:func:`deterministic`): the convolutions' backward sums without atomics.
 
 Given a :class:`~realtime_yukarin_tpu_torch.parallel.mesh.Mesh` (the
 ``make_sharded_*`` steps), each rank holds its rows of the global batch
@@ -27,9 +34,11 @@ they run on the shards unchanged.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
+import warnings
 
 import torch
 import torch.nn as nn
@@ -49,6 +58,8 @@ from realtime_yukarin_tpu_torch.models.voice_changer import (param_leaves,
 from realtime_yukarin_tpu_torch.parallel.mesh import (
     Mesh, data_parallel, gather_model, gather_params, shard_params,
     sharded_leaf_ids, sum_over_data_, sum_over_model)
+from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
+from realtime_yukarin_tpu_torch.streaming.state import tree_map
 from realtime_yukarin_tpu_torch.training import losses
 
 WEIGHT_DECAY = 1e-5      # optax.adamw(lr, weight_decay=1e-5)
@@ -128,12 +139,44 @@ def clip_per_stage(grads: dict[str, list[torch.Tensor]],
     return out
 
 
+@contextlib.contextmanager
+def deterministic():
+    """A step's gradients in the same order on every run: cuDNN picks each
+    convolution's forward algorithm by its heuristics (no autotuning, whose
+    timing-driven choice could differ between runs) for the block, and the
+    convolutions' backward runs without atomics (``ops/conv.py``).  With
+    cuDNN's default backward, two runs of one step parted on the H100 in
+    the last bits of every convolution's weight and bias gradient, which
+    Adam's per-element normalisation carried into the trained weights.
+    The flag is global, so autograd's thread sees it too; a captured step
+    keeps the algorithms its capture chose."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark
+    cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        cudnn.benchmark = saved
+
+
+def optimizer_step(opt: torch.optim.Optimizer) -> None:
+    """``opt.step()``, without torch's warning that a ``capturable``
+    optimizer runs uncaptured: a program's warm-up and a multi-rank step
+    run the captured arithmetic eagerly on purpose."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*capturable=True.*")
+        opt.step()
+
+
 def make_optimizer(params: dict, lr: float = 1e-4) -> torch.optim.AdamW:
     """AdamW over every leaf of ``params`` (``f0_stats`` too: optax decays
     every leaf).  optax's b1, b2, eps and decoupled decay are torch's
-    defaults; the decay is set to optax's 1e-5."""
+    defaults; the decay is set to optax's 1e-5.  ``capturable`` on CUDA (a
+    graph captures it only with its step counts on the device, which torch
+    refuses for CPU tensors)."""
     leaves = [p for ps in param_leaves(params).values() for p in ps]
-    return torch.optim.AdamW(leaves, lr=lr, weight_decay=WEIGHT_DECAY)
+    return torch.optim.AdamW(leaves, lr=lr, weight_decay=WEIGHT_DECAY,
+                             capturable=leaves[0].device.type == "cuda")
 
 
 def gradients(loss: torch.Tensor, params: dict, mesh: Mesh | None = None
@@ -168,7 +211,7 @@ def apply_gradients(opt: torch.optim.Optimizer, params: dict,
     for k, ps in param_leaves(params).items():
         for p, g in zip(ps, clipped[k]):
             p.grad = g
-    opt.step()
+    optimizer_step(opt)
     opt.zero_grad(set_to_none=True)
 
 
@@ -216,20 +259,135 @@ def loss_and_grads(params: dict, batch: Batch, cfg: Config,
                    mesh: Mesh | None = None
                    ) -> tuple[dict, dict[str, list[torch.Tensor]]]:
     """(metrics, gradients by subtree) — ``jax.value_and_grad(loss_fn)``;
-    with ``mesh``, the global batch's, on every rank."""
-    total, metrics = loss_fn(params, batch, cfg, mesh)
-    return metrics, gradients(total, params, mesh)
+    with ``mesh``, the global batch's, on every rank; deterministic."""
+    with deterministic():
+        total, metrics = loss_fn(params, batch, cfg, mesh)
+        return metrics, gradients(total, params, mesh)
 
 
-def make_train_step(cfg: Config, mesh: Mesh | None = None):
-    """step(state, batch) -> (state, metrics), updating ``state``."""
-    def train_step(state: TrainState, batch: Batch):
-        metrics, grads = loss_and_grads(state.params, batch, cfg, mesh)
-        apply_gradients(state.opt, state.params, grads, mesh)
+def joint_step_body(state: TrainState, batch: Batch, cfg: Config,
+                    mesh: Mesh | None = None) -> dict:
+    """One joint step on ``state`` in place (its host ``step`` count
+    aside): the eager body that :func:`make_train_step` captures, and the
+    reference its replays are held to.  Returns the metrics."""
+    metrics, grads = loss_and_grads(state.params, batch, cfg, mesh)
+    apply_gradients(state.opt, state.params, grads, mesh)
+    return metrics
+
+
+def _batch_tensors(batch) -> list[torch.Tensor]:
+    """A batch's tensors: a :class:`Batch`'s fields, or a tuple's items."""
+    if dataclasses.is_dataclass(batch):
+        return [getattr(batch, f.name) for f in dataclasses.fields(batch)]
+    return list(batch)
+
+
+def optimizer_leaves(opt: torch.optim.Optimizer) -> list[torch.Tensor]:
+    """Every state tensor of ``opt`` (its state made first, as
+    :func:`ensure_optimizer_state` makes it), parameter by parameter."""
+    ensure_optimizer_state(opt)
+    return [v for group in opt.param_groups for p in group["params"]
+            for v in opt.state[p].values() if isinstance(v, torch.Tensor)]
+
+
+def state_leaves(state) -> tuple[torch.Tensor, ...]:
+    """Every tensor a training step reads and updates in place: the
+    parameter trees and modules of a state dataclass (``TrainState``,
+    ``GanTrainState``, the fine-tune's) and its optimizers' moments and
+    step counts."""
+    out = []
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, torch.optim.Optimizer):
+            out += optimizer_leaves(v)
+        elif isinstance(v, nn.Module):
+            out += list(v.parameters())
+        elif isinstance(v, dict):
+            out += [p for ps in param_leaves(v).values() for p in ps]
+    return tuple(out)
+
+
+def _eager_reason(mesh: Mesh | None) -> str | None:
+    if mesh is not None and mesh.world > 1:
+        return (f"{mesh.world} ranks: the step's collectives stay eager "
+                f"(gloo cannot be captured; NCCL capture across cards "
+                f"needs two cards)")
+    return None
+
+
+class StepProgram:
+    """``step(state, batch) -> (state, metrics)``: ``body(state, batch)``
+    (which updates ``state`` in place and returns its metrics) as one
+    device program, and the host's ``state.step += 1``.
+
+    The first call with a state (or after its tensors were replaced, or
+    with a batch of another shape) copies the batch into static buffers
+    and builds a :class:`CapturedProgram` over them and the state's
+    tensors (:func:`state_leaves`), differentiable: on CUDA it warms the
+    body up once with the whole state snapshot and put back, then
+    captures it; the earlier program is dropped.  Each call copies the
+    batch in and replays.  On the CPU, or with an ``eager_reason``, the
+    same body runs eagerly over the same buffers.  Metrics are the
+    caller's tensors.  No autograd graph over the state's parameters may be
+    alive when the step is built (a kept loss or output): autograd would
+    join the capture to the stream that graph ran on, and the capture
+    raises."""
+
+    def __init__(self, body, name: str, eager_reason: str | None = None):
+        self._body = body
+        self.name = name
+        self.eager_reason = eager_reason
+        self.program: CapturedProgram | None = None
+        self._sig = None
+        self._batch = None
+
+    def __call__(self, state, batch):
+        leaves = state_leaves(state)
+        tensors = _batch_tensors(batch)
+        sig = (id(state),
+               tuple((t.shape, t.dtype, t.device) for t in tensors),
+               tuple(t.data_ptr() for t in leaves))
+        if sig != self._sig:
+            self._build(state, batch, leaves)
+            self._sig = sig
+        for dst, src in zip(_batch_tensors(self._batch), tensors):
+            dst.copy_(src)
+        metrics = self.program()
         state.step += 1
         return state, metrics
 
-    return train_step
+    def _build(self, state, batch, leaves) -> None:
+        if self.program is not None and self.program.captured:
+            torch.cuda.synchronize(self.program.device)  # none in flight
+        self.program = None
+        # the program's body holds ``state``, so its id is not reused
+        static = self._batch = tree_map(torch.clone, batch)
+        try:
+            self.program = CapturedProgram(
+                lambda: self._body(state, static), state=leaves,
+                device=leaves[0].device, name=self.name,
+                eager_reason=self.eager_reason, differentiable=True)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"{self.name}: the capture failed.  If an autograd graph "
+                f"over the state's parameters is still alive (a loss or an "
+                f"output kept from an earlier forward), it ties their "
+                f"gradients to the stream it ran on, which a capture may "
+                f"not join: drop it before the step's first call") from e
+
+    def summary(self) -> str:
+        if self.program is None:
+            return f"{self.name}: not built yet (built at its first call)"
+        return self.program.summary()
+
+
+def make_train_step(cfg: Config, mesh: Mesh | None = None) -> StepProgram:
+    """step(state, batch) -> (state, metrics), updating ``state``: the
+    joint step (:func:`joint_step_body`) as one device program, eager on
+    a mesh of several ranks."""
+    return StepProgram(functools.partial(joint_step_body, cfg=cfg,
+                                         mesh=mesh),
+                       "joint training step", _eager_reason(mesh))
 
 
 def init_train_state(params: dict, device, lr: float = 1e-4) -> TrainState:
@@ -252,14 +410,33 @@ def gan_losses_and_grads(state: GanTrainState, batch: Batch, cfg: Config,
     """(metrics, generator gradients, discriminator gradients) at the
     state's generator and discriminator: the first half of the GAN step."""
     disc = state.d_params
-    base, metrics, env_pred = _losses(state.params, batch, cfg, mesh)
-    l_adv = g_hinge_loss(disc(_log_env(env_pred)), mesh)
-    g_grads = gradients(base + adv_weight * l_adv, state.params, mesh)
-    ld = d_hinge_loss(disc(_log_env(batch.env_tgt)),
-                      disc(_log_env(env_pred.detach())), mesh)
-    d_grads = gradients(ld, {"params": disc}, mesh)
+    with deterministic():
+        base, metrics, env_pred = _losses(state.params, batch, cfg, mesh)
+        l_adv = g_hinge_loss(disc(_log_env(env_pred)), mesh)
+        g_grads = gradients(base + adv_weight * l_adv, state.params, mesh)
+        ld = d_hinge_loss(disc(_log_env(batch.env_tgt)),
+                          disc(_log_env(env_pred.detach())), mesh)
+        d_grads = gradients(ld, {"params": disc}, mesh)
     return (dict(metrics, adv=l_adv.detach(), d_loss=ld.detach()), g_grads,
             d_grads)
+
+
+def gan_step_body(state: GanTrainState, batch: Batch, cfg: Config,
+                  adv_weight: float = 0.02, ema_decay: float = 0.99,
+                  mesh: Mesh | None = None) -> dict:
+    """One GAN step on ``state`` in place (its host ``step`` count aside):
+    the eager body that :func:`make_gan_train_step` captures.  Returns the
+    metrics."""
+    metrics, g_grads, d_grads = gan_losses_and_grads(
+        state, batch, cfg, adv_weight, mesh)
+    apply_gradients(state.opt, state.params, g_grads, mesh)
+    apply_gradients(state.d_opt, {"params": state.d_params}, d_grads, mesh)
+    ema = param_leaves(state.ema_params)
+    with torch.no_grad():
+        for k, ps in param_leaves(state.params).items():
+            for e, p in zip(ema[k], ps):
+                e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+    return metrics
 
 
 def make_gan_train_step(cfg: Config, adv_weight: float = 0.02,
@@ -271,22 +448,13 @@ def make_gan_train_step(cfg: Config, adv_weight: float = 0.02,
     discriminator (the discriminator sees the old generator's envelope,
     detached); then both update, then the EMA generator moves to
     ``ema_decay * e + (1 - ema_decay) * p_new`` — the JAX step's order.
-    Default adv_weight 0.02: the JAX package's held-out choice."""
-    def train_step(state: GanTrainState, batch: Batch):
-        metrics, g_grads, d_grads = gan_losses_and_grads(
-            state, batch, cfg, adv_weight, mesh)
-        apply_gradients(state.opt, state.params, g_grads, mesh)
-        apply_gradients(state.d_opt, {"params": state.d_params}, d_grads,
-                        mesh)
-        ema = param_leaves(state.ema_params)
-        with torch.no_grad():
-            for k, ps in param_leaves(state.params).items():
-                for e, p in zip(ema[k], ps):
-                    e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
-        state.step += 1
-        return state, metrics
-
-    return train_step
+    Default adv_weight 0.02: the JAX package's held-out choice.  One
+    device program (:class:`StepProgram`), eager on a mesh of several
+    ranks."""
+    return StepProgram(functools.partial(gan_step_body, cfg=cfg,
+                                         adv_weight=adv_weight,
+                                         ema_decay=ema_decay, mesh=mesh),
+                       "GAN training step", _eager_reason(mesh))
 
 
 def init_gan_train_state(params: dict, d_params: nn.Module, device,
@@ -310,15 +478,18 @@ def init_gan_train_state(params: dict, d_params: nn.Module, device,
 # ---------------------------------------------------------------------------
 
 def ensure_optimizer_state(opt: torch.optim.Optimizer) -> None:
-    """Create AdamW's state for every parameter that has none yet, as its
-    first step would (step 0, zero moments): every rank then holds the same
-    structure, which a broadcast needs, and the first step computes the
-    same update."""
+    """Create Adam's or AdamW's state for every parameter that has none
+    yet, as its first step would (step 0, zero moments; the step count on
+    the parameter's device when ``capturable``): every rank then holds the
+    same structure, which a broadcast needs, a captured step finds every
+    tensor it updates, and the first step computes the same update."""
     for group in opt.param_groups:
         for p in group["params"]:
             if not opt.state[p]:
                 opt.state[p] = {
-                    "step": torch.tensor(0.0),
+                    "step": (torch.zeros((), dtype=torch.float32,
+                                         device=p.device)
+                             if group["capturable"] else torch.tensor(0.0)),
                     "exp_avg": torch.zeros_like(
                         p, memory_format=torch.preserve_format),
                     "exp_avg_sq": torch.zeros_like(

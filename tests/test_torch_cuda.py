@@ -320,3 +320,74 @@ def test_no_collection_during_a_capture(device):
     assert program.captured
     assert seen == [True, False]
     assert gc.isenabled()
+
+
+def _small_training_config():
+    """The quality recipe's tiny Config (tools/torch_quality.py), float32:
+    a training program at small widths, quick to capture."""
+    return chip_smoke.torch_quality().quality_config()
+
+
+@pytest.mark.parametrize("objective", chip_smoke.TRAIN_OBJECTIVES)
+def test_training_program_replays_equal_the_eager_body(device, objective):
+    """Each training step captured on the card (kernel 4 inside its
+    backward, launched on autograd's thread) replays bit-equal to its
+    eager body over three steps, and two eager runs agree bit for bit;
+    kernel 4 is counted once per replay."""
+    from realtime_yukarin_tpu_torch.training.data import make_batch
+    cfg = _small_training_config()
+    run = chip_smoke.training_runs(cfg, device)[objective]
+    batches = [make_batch(cfg, 2, seconds=0.2, seed=s, device=device)
+               for s in range(3)]
+    assert chip_smoke.eager_twice(run, batches[:2])
+    r = chip_smoke.train_replay_vs_eager(run, batches)
+    assert r["mismatched"] == []
+    program = r["step"].program
+    assert program.captured
+    assert program.kernel_launches["harmonic_bank_bwd"] == 1
+    cuda.reset_counts()
+    for _ in range(2):
+        r["step"](r["state"], r["batch"])
+    torch.cuda.synchronize()
+    assert cuda.HARMONIC_BANK_BWD.launches == 2
+
+
+def test_a_host_sync_in_a_captured_backward_is_refused(device):
+    """The capture mode refuses a host sync made from autograd's thread in
+    a captured backward (the capture raises; no fallback), and the card
+    stays usable."""
+    from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
+
+    class Syncing(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return 2 * x
+
+        @staticmethod
+        def backward(ctx, g):
+            float(g.sum())
+            return 2 * g
+
+    w = torch.ones(4, device=device, requires_grad=True)
+
+    def body():
+        return torch.autograd.grad(Syncing.apply(w).sum(), w)[0]
+
+    with pytest.raises(Exception, match="captur"):
+        CapturedProgram(body, state=(), device=device, differentiable=True)
+    torch.cuda.synchronize()
+    assert float(torch.ones(3, device=device).sum()) == 3.0
+
+
+@pytest.mark.parametrize("F", [chip_smoke.TRAIN_FRAMES, 800])
+def test_analysis_program_equals_the_eager_analysis(device, F):
+    """The analysis program at make_batch's length and at a prepared
+    file's bucket: the first call eager, the second captured, every call
+    bit-equal to offline_analyze_eager; kernels 2 and 3 once per replay."""
+    rng = np.random.default_rng(F)
+    waves = [torch.from_numpy(rng.standard_normal(F * 120).astype(
+        np.float32)) for _ in range(3)]
+    r = chip_smoke.analysis_replay_vs_eager(Config(), waves, F, device)
+    assert r["equal"] and r["program"].captured
+    assert r["program"].kernel_launches == {"power_spectrum": 1,
+                                            "envelope_cepstrum": 1}

@@ -302,3 +302,53 @@ def test_analyze_matches_jax(kind):
                                rtol=0, atol=1.2e-2)
     np.testing.assert_allclose(tf.ap.numpy()[both], np.asarray(jf.ap)[both],
                                rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_standalone_entry_points_match_jax(kind):
+    """The standalone entry points (estimate_f0, estimate_f0_raw,
+    f0_candidates, spectral_envelope, envelope_from_power,
+    log_envelope_from_power, band_aperiodicity, expand_aperiodicity)
+    against the JAX package's, jitted, at the gates above; estimate_f0 is
+    analyze's F0 exactly."""
+    import jax
+    x, F = _signal(kind, 0.5)
+    jx, tx = jnp.asarray(x), t32(x)
+
+    def jit(fn, *static):
+        return jax.jit(fn, static_argnums=static)
+
+    jf0 = jit(j_f0.estimate_f0, 1, 2)(jx, F, CFG)
+    tf0 = t_f0.estimate_f0(tx, F, CFG)
+    _f0_agree(tf0, jf0)
+    assert torch.equal(tf0, t_world.analyze(tx, F, CFG).f0)
+    _f0_agree(t_f0.estimate_f0_raw(tx, F, CFG),
+              jit(j_f0.estimate_f0_raw, 1, 2)(jx, F, CFG))
+    tcand, _ = t_f0.f0_candidates(tx, F, CFG)
+    jcand, _ = jit(j_f0.f0_candidates, 1, 2)(jx, F, CFG)
+    _f0_agree(np.sort(tcand.numpy(), axis=1),
+              np.sort(np.asarray(jcand), axis=1))
+    f0 = np.asarray(jf0)
+    jP = jit(j_env.power_spectrogram, 1, 2)(jx, F, CFG)
+    tP = t32(jP)
+    for t_env_out, j_env_out in (
+            (t_env.spectral_envelope(tx, t32(f0), F, CFG),
+             jit(j_env.spectral_envelope, 2, 3)(jx, jnp.asarray(f0), F, CFG)),
+            (t_env.envelope_from_power(tP, t32(f0), CFG),
+             jit(j_env.envelope_from_power, 2)(jP, jnp.asarray(f0), CFG)),
+            (torch.exp(t_env.log_envelope_from_power(tP, t32(f0), CFG)),
+             jnp.exp(jit(j_env.log_envelope_from_power, 2)(
+                 jP, jnp.asarray(f0), CFG)))):
+        lj, lt = np.log(np.asarray(j_env_out)), np.log(t_env_out.numpy())
+        hi = np.asarray(j_env_out) >= np.asarray(j_env_out).max(
+            axis=1, keepdims=True) * 10.0 ** (-45.0 / 10.0)
+        assert np.abs(lt - lj)[hi].max() < 0.05
+        assert np.abs(lt - lj)[~hi].max() < 0.17
+    jap = jit(j_ap.band_aperiodicity, 2, 3)(jx, jnp.asarray(f0), F, CFG)
+    np.testing.assert_allclose(
+        t_ap.band_aperiodicity(tx, t32(f0), F, CFG).numpy(), np.asarray(jap),
+        rtol=0, atol=2e-2)
+    np.testing.assert_allclose(
+        t_ap.expand_aperiodicity(t32(jap), CFG).numpy(),
+        np.asarray(jit(j_ap.expand_aperiodicity, 1)(jap, CFG)), rtol=0,
+        atol=1e-6)

@@ -20,9 +20,12 @@ second captures), then ``--steps`` replays traced.
 
 ``--train``: the default Config at full width in float32 with chip_smoke's
 batch (8 utterances x 100 frames); for the joint and the GAN objective in
-turn, warms up one step, then traces ``--steps`` calls of ``make_batch``
-on the card and, separately, ``--steps`` train steps on one batch (what
-``cli.train --synthetic`` does per step is the sum of the two).
+turn, the eager step body and the captured step (``StepProgram``) side by
+side, each warmed up once, then ``--steps`` steps traced on one batch;
+then ``make_batch`` in its two halves: the host synthesis, and the
+analysis of its 16 utterances eagerly and through the analysis program
+(what ``cli.train --synthetic`` does per step is the step plus both
+halves).
 
 For each window it prints the host wall time per step, the device busy
 time per step (sum of GPU kernel and copy durations; one stream, so they do
@@ -123,6 +126,8 @@ def profile_offline(steps: int) -> None:
 
 
 def profile_train(steps: int) -> None:
+    import functools
+
     import torch
 
     import chip_smoke
@@ -130,33 +135,44 @@ def profile_train(steps: int) -> None:
     from realtime_yukarin_tpu_torch.models.discriminator import (
         init_discriminator)
     from realtime_yukarin_tpu_torch.models.voice_changer import init_params
+    from realtime_yukarin_tpu_torch.pipeline import offline_analyze_eager
+    from realtime_yukarin_tpu_torch.training import data
     from realtime_yukarin_tpu_torch.training import train_step as ts
-    from realtime_yukarin_tpu_torch.training.data import make_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = Config()
     dev = torch.device("cuda")
     seconds = chip_smoke.TRAIN_FRAMES * cfg.dsp.hop / cfg.dsp.sample_rate
-    seeds = iter(range(1000))
-
-    def new_batch():
-        return make_batch(cfg, chip_smoke.TRAIN_BATCH, seconds=seconds,
-                          seed=next(seeds), device=dev)
-
     params = init_params(cfg, torch.Generator().manual_seed(0))
     disc = init_discriminator(cfg.super_resolution, cfg.dsp,
                               torch.Generator().manual_seed(1))
-    batch = new_batch()
-    for name, state, step_fn in (
-            ("train joint", ts.init_train_state(params, dev),
+    host = data.synth_batch(cfg, chip_smoke.TRAIN_BATCH, seconds, seed=0)
+    batch = data.analyze_batch(cfg, *host, device=dev)
+    for name, make_state, body, step_fn in (
+            ("train joint", lambda: ts.init_train_state(params, dev),
+             functools.partial(ts.joint_step_body, cfg=cfg),
              ts.make_train_step(cfg)),
-            ("train gan", ts.init_gan_train_state(params, disc, dev),
+            ("train gan", lambda: ts.init_gan_train_state(params, disc, dev),
+             functools.partial(ts.gan_step_body, cfg=cfg),
              ts.make_gan_train_step(cfg))):
-        step_fn(state, batch)                    # warm-up
+        eager_state, state = make_state(), make_state()
+        body(eager_state, batch)                 # warm-up
+        step_fn(state, batch)                    # warm-up and capture
         torch.cuda.synchronize()
-        profile_window(name, lambda: step_fn(state, batch), steps)
-    profile_window("make_batch", new_batch, steps)
+        profile_window(f"{name} eager", lambda: body(eager_state, batch),
+                       steps)
+        profile_window(f"{name} captured", lambda: step_fn(state, batch),
+                       steps, step_fn.program)
+    profile_window("make_batch host synthesis",
+                   lambda: data.synth_batch(cfg, chip_smoke.TRAIN_BATCH,
+                                            seconds, seed=1), steps)
+    F = host[2].shape[1]
+    waves = [torch.from_numpy(w) for w in host[0] + host[1]]
+    profile_window("make_batch analysis eager", lambda: [
+        offline_analyze_eager(w, cfg, F, dev) for w in waves], steps)
+    profile_window("make_batch analysis captured",
+                   lambda: data.analyze_batch(cfg, *host, device=dev), steps)
 
 
 def main() -> int:
