@@ -24,8 +24,9 @@ non-zero):
    the training step's launch for d_aL and d_aR only); then, checked but
    not profiled, the rows the other paths give a kernel (``path_rows``:
    the quality recipe's prepared target file and output re-analysis, a
-   stream's start at the default and the recipe's Config, the recipe's
-   conditioning-gap render).  For each: the error against the
+   stream's start at the default, the recipe's and the 20 ms profile's
+   Config, the recipe's conditioning-gap render, the 20 ms profile's step
+   at one stream and at 64, R = 4 and 256).  For each: the error against the
    plain version and both against a float64 evaluation of the plain
    version (per output for the backward); CUDA-event times of the kernel,
    the plain version and the library yardstick (mean of 200 back-to-back
@@ -151,8 +152,25 @@ non-zero):
    ``make_batch`` as its host synthesis and its analysis eager and
    captured; phase 17 (a)'s preparation with eager analysis and through
    the programs; the quality recipe's wall time (phase 17 (c));
-21. the kernels line: one JSON object with every kernel's numbers;
-22. last line: ``{"ok": true, "device": {...}}``.
+21. the step's cost (``BatchedServer.step_cost_analysis``,
+   ``model_stage_flops``; ``utils/cost.py``): (a) the default profile
+   (dsp, bf16) counted at N = 1, 8, 64 on the card and on the CPU at the
+   same Config and weights, FLOPs and the learned stages' FLOPs equal
+   exactly, bytes printed with the ops where they part; (b) the counted
+   kernel launches and their R equal to one replay's launch record; (c)
+   after a count, the next replay bit-equal to a second server's that
+   never counted; (d) FLOPs, bytes, learned and structural FLOPs, the
+   kernels' share, the captured step's p50 and the achieved TFLOP/s as a
+   share of the bf16 and float32 peaks (not an MFU), a count refused
+   inside a capture; ddsp and wave counted at N = 8; (e) bench.py's 20 ms
+   profile (20 ms chunks, causal contour search, stage 1 3 x k3, SR 1
+   block): one captured stream against its eager loop bit for bit and
+   CUDA vs CPU in float32 (2e-3 of the peak, identical voicing), a
+   captured server at 64 lanes against its eager step and timed, every
+   kernel shape one phase 3 held (R = 4 and 256 are in ``path_rows``),
+   then its step counted;
+22. the kernels line: one JSON object with every kernel's numbers;
+23. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 4, 6, 8-10, 12-17 (and 18's serving and its one-process training
 reference) run the captured programs: their launch counts come from the
@@ -302,6 +320,17 @@ CAPTURE_STREAMS = (("dsp", "bfloat16", None), ("ddsp", "bfloat16", None),
 TRAIN_OBJECTIVES = ("joint", "gan", "finetune")
 DET_STEPS, TRAIN_REPLAYS, FINETUNE_LR = 4, 8, 3e-4
 TRAIN_TIMED = 16            # steps timed per objective and way
+# Phase 21: the step's cost (BatchedServer.step_cost_analysis) at the
+# default profile (dsp, bf16) at COST_STREAMS lanes, counted on the card and
+# on the CPU at the same Config and weights; ddsp and wave at
+# COST_MODE_STREAMS lanes; bench.py's 20 ms profile (low_latency_config) on
+# the card: one stream and a server at LL_STREAMS lanes, captured.
+COST_STREAMS = (1, 8, 64)
+COST_MODE_STREAMS = 8
+LL_STREAMS = 64
+# H100 SXM published dense bf16 peak (NVIDIA data sheet), beside
+# PEAK_F32_FLOPS as a share of achieved FLOP/s
+PEAK_BF16_FLOPS = 989e12
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
@@ -390,11 +419,13 @@ def path_rows(cfg) -> tuple[list[int], list[int]]:
     bucket 32: 132 frames -> 160 rows), its full-chain output re-analysed
     at the held-out source's length (0.6 s: 120), and a stream's start
     (the analysis of its cache frames of silence) in each vocoder mode at
-    the default and the recipe's Config; a rank's lanes in phase 18
-    (MH_ROWS) and its socket slots (MH_SOCKET_ROWS).  The bank: the
-    recipe's conditioning gap, which renders a whole target file (132
-    rows); the same two phase 18 widths and the batch a model split gives
-    each rank there (MH_TRAIN_ROWS)."""
+    the default, the recipe's and the 20 ms profile's Config; a rank's
+    lanes in phase 18 (MH_ROWS) and its socket slots (MH_SOCKET_ROWS);
+    the 20 ms profile's step at one stream and at LL_STREAMS (phase 21:
+    4 and 256 rows).  The bank: the recipe's conditioning gap, which
+    renders a whole target file (132 rows); the same two phase 18 widths
+    and the batch a model split gives each rank there (MH_TRAIN_ROWS); the
+    20 ms profile's two step widths."""
     from realtime_yukarin_tpu_torch.streaming.state import StreamGeometry
     from realtime_yukarin_tpu_torch.training.corpus import frame_bucket
     from realtime_yukarin_tpu_torch.training.data import (FORMANT_BUCKET,
@@ -405,10 +436,16 @@ def path_rows(cfg) -> tuple[list[int], list[int]]:
                     for s in FORMANT_SECONDS)
     analysis = {frame_bucket(F, FORMANT_BUCKET) for F in (src_f, tgt_f)}
     analysis.add(src_f)
+    ll = low_latency_config(cfg)
     analysis |= {StreamGeometry.from_config(c, True, vocoder_mode=m)
-                 .cache_frames for c in (cfg, qcfg) for m in VOCODER_MODES}
+                 .cache_frames for c in (cfg, qcfg, ll)
+                 for m in VOCODER_MODES}
     analysis |= {MH_ROWS, MH_SOCKET_ROWS}
     bank = {tgt_f, MH_ROWS, MH_SOCKET_ROWS, MH_TRAIN_ROWS}
+    # the 20 ms profile's step: one stream and LL_STREAMS lanes (phase 21)
+    ll_fc = StreamGeometry.from_config(ll).chunk_frames
+    analysis |= {ll_fc, ll_fc * LL_STREAMS}
+    bank |= {ll_fc, ll_fc * LL_STREAMS}
     return ([R for R in sorted(analysis) if R not in KERNEL_ROWS],
             [R for R in sorted(bank) if R not in KERNEL_ROWS])
 
@@ -527,28 +564,27 @@ def kernel_cases(R: int, cfg, dev, rng, n: int | None = None):
                                      index=i) for i in (0, 1)], dim=1)
     C = dft.device_const(dft.cepstrum_basis, n, like=P)
     D = dft.device_const(dft.cepstrum_inverse_basis, n, like=P)
+    # (flops, bytes): the formulas a cost count reads (ops/)
+    bank_fb = hb.bank_forward_cost(R, H, hop)
+    power_fb = analysis.power_spectrum_cost(R, n)
+    cep_fb = analysis.envelope_cepstrum_cost(R, K)
     return {
         "harmonic_bank": Case(
             lambda: hb.harmonic_bank(al, ar, phi, frac),
             lambda: hb.harmonic_bank_plain(al, ar, phi, frac),
-            None,
-            4 * (2 * R * H + 2 * R * hop + hop),
-            6.0 * R * hop * H,
+            None, bank_fb[1], bank_fb[0],
             lambda: hb.harmonic_bank_plain(al.double(), ar.double(),
                                            phi.double(), frac.double())),
         "power_spectrum": Case(
             lambda: analysis.power_spectrum_fused(frames, n),
             lambda: analysis.power_spectrum_plain(frames, n),
-            lambda: torch.matmul(frames, cs),
-            4 * (R * n + n + 2 * n * K + R * K),
-            4.0 * R * n * K,
+            lambda: torch.matmul(frames, cs), power_fb[1], power_fb[0],
             lambda: analysis.power_spectrum_plain(frames.double(), n)),
         "envelope_cepstrum": Case(
             lambda: analysis.envelope_cepstrum_fused(P, lift, n, db),
             lambda: analysis.envelope_cepstrum_plain(P, lift, n, db),
             lambda: torch.matmul(torch.matmul(torch.matmul(P, C), D), C),
-            4 * (3 * R * K + 2 * K * K),
-            6.0 * R * K * K,
+            cep_fb[1], cep_fb[0],
             lambda: analysis.envelope_cepstrum_plain(P.double(),
                                                      lift.double(), n, db)),
     }
@@ -559,17 +595,16 @@ def bwd_case(R: int, cfg, dev, rng, H: int | None = None,
     """(kernel call, plain call, bytes, flops, plain call in float64,
     kernel call for d_aL and d_aR only) of the harmonic-bank backward on
     seeded inputs with R rows, at training's widths unless ``H`` or ``hop``
-    is given.  flops: 7 FMAs per row, sample and harmonic (d_aL and d_aR
-    2, the sine and cosine recurrences 2, d_phi 2 with h aL and h aR
-    formed once per row, d_frac 1)."""
+    is given.  flops and bytes: ``hb.bank_backward_cost``'s (14 FLOP per
+    row, sample and harmonic)."""
     from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
 
     H, hop = H or cfg.dsp.num_harmonics, hop or cfg.dsp.hop
     al, ar, phi, frac, g = bank_inputs(R, H, hop, dev, rng)
+    nflops, nbytes = hb.bank_backward_cost(R, H, hop)
     return (lambda: hb.harmonic_bank_bwd(al, ar, phi, frac, g),
             lambda: hb.harmonic_bank_bwd_plain(al, ar, phi, frac, g),
-            4 * (4 * R * H + 4 * R * hop + hop),
-            14.0 * R * hop * H,
+            nbytes, nflops,
             lambda: hb.harmonic_bank_bwd_plain(al.double(), ar.double(),
                                                phi.double(), frac.double(),
                                                g.double()),
@@ -2283,6 +2318,20 @@ def leaves_equal(a, b) -> bool:
                                       for x, y in zip(la, lb))
 
 
+def low_latency_config(cfg):
+    """bench.py's 20 ms profile (bench.py:380-396) on ``cfg``: 20 ms
+    chunks, the causal contour search (f0_snap_halo 0, f0_snap_left 6),
+    stage 1 of 3 blocks of kernel 3, SR of 1 block."""
+    from realtime_yukarin_tpu_torch.config import (AcousticModelConfig,
+                                                   StreamingConfig,
+                                                   SuperResolutionConfig)
+    return dataclasses.replace(
+        cfg, streaming=StreamingConfig(chunk_ms=20.0),
+        dsp=dataclasses.replace(cfg.dsp, f0_snap_halo=0, f0_snap_left=6),
+        acoustic=AcousticModelConfig(num_blocks=3, kernel_size=3),
+        super_resolution=SuperResolutionConfig(num_blocks=1))
+
+
 def rate_config(cfg, rate: int | None):
     """``cfg`` with a ``rate`` Hz client in and out (None: unchanged)."""
     if rate is None:
@@ -2963,6 +3012,215 @@ def captured_training_phase(cfg, dev="cuda", quality_s=None) -> dict:
     return record
 
 
+# -- the step's cost (phase 21) ----------------------------------------------
+
+def count_step_both(params, cfg, N: int, mode: str, label: str,
+                    fails: list):
+    """One batched step at N lanes counted on the card and on the CPU, at
+    the same Config and weights (``BatchedServer.count_step``,
+    ``model_stage_flops``): the FLOPs and the learned stages' FLOPs must
+    be equal exactly; the bytes are printed with the ops where they part;
+    the card's kernel launches and their R must be those of one replay of
+    the captured program (``Capture.launches``).  Returns (the card's
+    server, its count, its stage counts)."""
+    from realtime_yukarin_tpu_torch.parallel.serving import (
+        BatchedServer, model_stage_flops)
+    servers = [BatchedServer(params, cfg, num_streams=N, seed=SEED,
+                             vocoder_mode=mode, device=d)
+               for d in ("cuda", "cpu")]
+    (c_dev, c_cpu), (m_dev, m_cpu) = ([s.count_step() for s in servers],
+                                      [model_stage_flops(s)
+                                       for s in servers])
+    srv = servers[0]
+    replay = sorted((k.name, launch_shape(k.name, a))
+                    for k, a in srv.program._capture.launches)
+    counted = sorted((k.name, k.shape) for k in c_dev.kernels)
+    parted = {op: (c_dev.op_bytes[op], c_cpu.op_bytes[op])
+              for op in set(c_dev.op_bytes) | set(c_cpu.op_bytes)
+              if c_dev.op_bytes[op] != c_cpu.op_bytes[op]}
+    print(f"[cost] {label}: FLOPs card {c_dev.flops} / CPU {c_cpu.flops} "
+          f"(equal={c_dev.flops == c_cpu.flops}), bytes card {c_dev.bytes} "
+          f"/ CPU {c_cpu.bytes}"
+          + (f" (parting ops: {parted})" if parted else " (equal)")
+          + f"; learned stages card {m_dev} / CPU {m_cpu}; kernel launches "
+          f"counted {counted}, one replay's record {replay} "
+          f"(equal={counted == replay})")
+    if c_dev.flops != c_cpu.flops or m_dev != m_cpu:
+        fails.append(f"{label}: card and CPU counts differ")
+    if not srv.captured or counted != replay:
+        fails.append(f"{label}: counted kernels {counted}, captured {replay}")
+    return srv, c_dev, m_dev
+
+
+def print_cost(label: str, count, stages: dict, N: int, chunk_s: float,
+               p50_ms: float | None = None) -> dict:
+    """Print a count's FLOPs, bytes, learned and structural FLOPs, the
+    kernels' share, and with the captured step's p50 the achieved rate;
+    returns them as a record."""
+    model = sum(stages.values())
+    kern = sum(k.flops for k in count.kernels)
+    rec = dict(flops=count.flops, bytes=count.bytes, model_flops=model,
+               structural_flops=count.flops - model, kernel_flops=kern,
+               model_flops_per_audio_s=model / (N * chunk_s))
+    line = (f"[cost] {label}: {count.flops} FLOPs "
+            f"({count.flops / N / 1e9:.4f} GFLOP per stream), "
+            f"{count.bytes} bytes (unfused), learned stages {model} "
+            f"({model / count.flops:.4f} of the FLOPs: {stages}), "
+            f"structural {count.flops - model}, the port's kernels {kern} "
+            f"({kern / count.flops:.4f}); learned-stage FLOPs per audio "
+            f"second {rec['model_flops_per_audio_s']:.4e}")
+    if p50_ms is not None:
+        tflops = count.flops / (p50_ms * 1e-3) / 1e12
+        rec.update(p50_ms=p50_ms, achieved_tflops=tflops)
+        line += (f"; captured step p50 {p50_ms:.3f} ms -> {tflops:.3f} "
+                 f"TFLOP/s achieved, {tflops * 1e12 / PEAK_BF16_FLOPS:.5f} "
+                 f"of the bf16 dense peak and "
+                 f"{tflops * 1e12 / PEAK_F32_FLOPS:.5f} of the float32 peak "
+                 f"(not an MFU: the count includes structural matmuls, the "
+                 f"DFT bases, one-hots and prefix sums, and the float32 "
+                 f"DSP)")
+    print(line)
+    return rec
+
+
+def cost_phase(cfg, checked: dict[str, set]) -> tuple[dict, dict]:
+    """Phase 21: the step's cost.  (a) the default profile (dsp, bf16)
+    counted at each of COST_STREAMS on the card and on the CPU
+    (``count_step_both``); (b) the counted kernels against one replay's
+    launch record; (c) after a count, a replay bit-equal to a second
+    server's that never counted; (d) FLOPs, bytes, the learned and the
+    structural FLOPs, the kernels' share and, with the captured step's p50
+    (host chunks in and out), the achieved rate; a count refused inside a
+    capture.  (e) the 20 ms profile on the card: one captured stream
+    against its eager loop bit for bit and CUDA vs CPU in float32 (2e-3
+    of the peak, identical voicing), a captured server at LL_STREAMS
+    lanes against its eager step and timed, every kernel shape one phase
+    3 held, then its step counted.  ddsp and wave counted at
+    COST_MODE_STREAMS.  Returns ({label: record}, the 20 ms runs' kernel
+    launches)."""
+    import torch
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+
+    dev = torch.device("cuda")
+    params = vocoder_params(cfg)
+    chunk_s = cfg.streaming.chunk_samples(cfg.dsp) / cfg.dsp.sample_rate
+    fails, record = [], {}
+    for N in COST_STREAMS:
+        label = f"dsp bf16 N={N}"
+        srv, count, stages = count_step_both(params, cfg, N, "dsp", label,
+                                             fails)
+        twin = BatchedServer(params, cfg, num_streams=N, seed=SEED,
+                             device=dev)
+        S = srv.chunk_samples
+        x = lane_signals(N, 4, cfg.dsp.in_rate, S).reshape(
+            N, 4, S).transpose(1, 0, 2).copy()
+        for k in range(2):
+            srv.step(x[k])
+            twin.step(x[k])
+        srv.step_cost_analysis()
+        same = (np.array_equal(srv.step(x[2]), twin.step(x[2]))
+                and leaves_equal(srv._carries, twin._carries))
+        print(f"[cost] {label}: after a count, the next replay bit-equal to "
+              f"a server's that never counted={same}")
+        if not same:
+            fails.append(f"{label}: a count changed the next replay")
+        p50, _ = wall_ms(lambda srv=srv, x=x: srv.step(x[3]), SERVE_STEPS)
+        record[label] = print_cost(label, count, stages, N, chunk_s, p50)
+        del srv, twin
+    # a count refuses to open inside a capture, on the card
+    server = BatchedServer(params, cfg, num_streams=1, device=dev)
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    one = torch.zeros(1, device=dev)
+    refused = False
+    with torch.cuda.graph(graph, stream=side,
+                          capture_error_mode="thread_local"):
+        one.add_(1.0)
+        try:
+            server.step_cost_analysis()
+        except RuntimeError:
+            refused = True
+    print(f"[cost] step_cost_analysis inside a CUDA graph capture raised="
+          f"{refused}")
+    if not refused:
+        fails.append("a count opened inside a capture")
+    for mode in ("ddsp", "wave"):
+        label = f"{mode} bf16 N={COST_MODE_STREAMS}"
+        _, count, stages = count_step_both(params, cfg, COST_MODE_STREAMS,
+                                           mode, label, fails)
+        record[label] = print_cost(label, count, stages, COST_MODE_STREAMS,
+                                   chunk_s)
+    # (e) the 20 ms profile
+    ll = low_latency_config(cfg)
+    ll_params = vocoder_params(ll)
+    ll_chunk_s = ll.streaming.chunk_samples(ll.dsp) / ll.dsp.sample_rate
+    shapes, undo = record_shapes()
+    cuda.reset_counts()
+    try:
+        r = stream_replay_vs_eager(ll_params, ll, "dsp", CAPTURE_STEPS, dev)
+        print(f"[cost] 20 ms profile, one stream: {CAPTURE_STEPS} replays "
+              f"vs the streaming_step loop, bit-equal="
+              f"{not r['mismatched']}; {r['program'].summary()}")
+        if r["mismatched"] or not r["program"].captured:
+            fails.append(f"20 ms stream: steps {r['mismatched']} differ")
+        ll32 = dataclasses.replace(ll, compute_dtype="float32")
+        x = test_signal(SECONDS, ll.dsp.sample_rate, SEED)
+        yc, _, vc, _ = run_stream(ll_params, ll32, x, "cuda")
+        yh, _, vh, _ = run_stream(ll_params, ll32, x, "cpu")
+        perr = rel_peak(yc, yh)
+        same_voicing = bool((vc == vh).all())
+        print(f"[cost] 20 ms profile, one stream (float32): cuda vs cpu "
+              f"max_err/peak={perr:.3e} (tol 2e-3), voicing identical="
+              f"{same_voicing} ({int(vh.sum())} voiced of {vh.size} frames)")
+        if perr > 2e-3 or not same_voicing:
+            fails.append(f"20 ms stream: CUDA vs CPU {perr:.3e}, voicing "
+                         f"identical={same_voicing}")
+        b = batched_replay_vs_eager(ll_params, ll, LL_STREAMS, BATCH_STEPS,
+                                    dev)
+        print(f"[cost] 20 ms profile, {LL_STREAMS} lanes: {BATCH_STEPS} "
+              f"replays vs make_batched_step's step, bit-equal="
+              f"{not b['mismatched']}, outputs held={b['held']}; "
+              f"{b['program'].summary()}")
+        if b["mismatched"] or not b["held"] or not b["program"].captured:
+            fails.append(f"20 ms batched: steps {b['mismatched']} differ")
+        srv = BatchedServer(ll_params, ll, num_streams=LL_STREAMS, seed=SEED,
+                            device=dev)
+        S = srv.chunk_samples
+        xs = np.ascontiguousarray(lane_signals(LL_STREAMS, 1,
+                                               ll.dsp.in_rate, S))
+        p50, p99 = wall_ms(lambda: srv.step(xs), SERVE_STEPS)
+        st = profile_stats(lambda: srv.step(xs), PROFILE_STEPS)
+        print(f"[cost] 20 ms profile, {LL_STREAMS} lanes captured (bf16): "
+              f"step p50 / p99 {p50:.3f} / {p99:.3f} ms, aggregate "
+              f"x{LL_STREAMS * ll_chunk_s * 1e3 / p50:.1f} realtime, device "
+              f"busy {st['busy_ms']:.3f} ms (torch.profiler), idle share "
+              f"{1.0 - st['busy_ms'] / p50:.3f} at the unprofiled p50, GPU "
+              f"kernels and copies per step {st['gpu_launches']:.1f}")
+    finally:
+        undo()
+    launches = launch_counts()
+    unchecked = {k: sorted(set(v) - checked[k]) for k, v in shapes.items()
+                 if set(v) - checked[k]}
+    print(f"[cost] 20 ms profile: kernel launches {launches}, shapes "
+          f"{ {k: sorted(set(v)) for k, v in shapes.items() if v} }")
+    if unchecked:
+        fails.append(f"20 ms profile: shapes phase 3 did not check: "
+                     f"{unchecked}")
+    label = f"20 ms dsp bf16 N={LL_STREAMS}"
+    _, count, stages = count_step_both(ll_params, ll, LL_STREAMS, "dsp",
+                                       label, fails)
+    record[label] = print_cost(label, count, stages, LL_STREAMS, ll_chunk_s,
+                               p50)
+    ratio = (record[f"dsp bf16 N={COST_STREAMS[-1]}"]
+             ["model_flops_per_audio_s"]
+             / record[label]["model_flops_per_audio_s"])
+    print(f"[cost] learned-stage FLOPs per audio second, the default "
+          f"profile over the 20 ms profile: {ratio:.3f}")
+    if fails:
+        raise AssertionError(f"phase 21: {fails}")
+    return record, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2980,6 +3238,7 @@ def main() -> int:
         return 2
     from realtime_yukarin_tpu_torch.config import Config
     from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.ops import harmonic_bank as hb
 
     # 1. device
     device_name = torch.cuda.get_device_name(0)
@@ -3086,8 +3345,7 @@ def main() -> int:
         checked[kname].add((R, H_d, hop_d, True))
         # the launch a training step makes: d_aL and d_aR only (autograd
         # asks for no phase or frac gradient), held against the same plain
-        # outputs and bound by its own operations and bytes (2 FMAs and a
-        # recurrence per row, sample, harmonic: 6 FLOP; no d_phi, d_frac)
+        # outputs and bound by its own operations and bytes
         a_outs = amps_only()[:2]
         a_errs = [abs_rel_err(k, p)[1] for k, p in zip(a_outs, refs)]
         a_k64 = [abs_rel_err(k.double(), x)[1]
@@ -3095,8 +3353,8 @@ def main() -> int:
         torch.cuda.synchronize()
         a_ok = max(a_errs) <= TOL[kname]
         amps_ms = device_ms(amps_only)
-        a_ms, a_by = bound_ms(4 * (4 * R * H_d + 2 * R * hop_d + hop_d),
-                              6.0 * R * hop_d * H_d)
+        a_flops, a_bytes = hb.bank_backward_cost(R, H_d, hop_d, phase=False)
+        a_ms, a_by = bound_ms(a_bytes, a_flops)
         print(f"[kernel] {kname} R={R} d_aL and d_aR only (the training "
               f"step's launch): /peak "
               + " ".join(f"{nm} {e:.3e}" for nm, e in zip(names, a_errs))
@@ -3264,15 +3522,21 @@ def main() -> int:
     captured_train = captured_training_phase(cfg, dev, quality_s)
     print(f"[captured-train] phase seconds {time.perf_counter() - t0:.1f}")
 
-    # 21. kernels line (launches: every path's run — the default stream,
+    # 21. the step's cost, on the card and the CPU, and the 20 ms profile
+    t0 = time.perf_counter()
+    _, cost_launches = cost_phase(cfg, checked)
+    print(f"[cost] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 22. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,
     # the batched server, corpus preparation, corpus training, the quality
-    # recipe, the ranks' serving and training, and phase 20's training
-    # replays and analyses), 22. result line
+    # recipe, the ranks' serving and training, phase 20's training
+    # replays and analyses, and phase 21's 20 ms stream and server), 23.
+    # result line
     paths = [launches, train_launches, *offline_launches.values(),
              *stream_launches.values(), batched_launches,
              *corpus_launches.values(), *multihost_launches.values(),
-             captured_train["launches"]]
+             captured_train["launches"], cost_launches]
     print(json.dumps({"kernels": [
         {"name": k.name, "route": "cuda", "source": k.source,
          "replaces": REPLACES[k.name],

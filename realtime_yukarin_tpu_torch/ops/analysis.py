@@ -18,6 +18,10 @@ tensors.  Both compute in plain float32.
 The plans below decide the kernels' tiling and pass it to the launchers,
 which refuse a layout or a tiling they were not built for; the constants in
 each kernel's layout are uploaded once per (n, device) with their pointers.
+
+A cost count (``utils/cost.py``) sees each call as one launch of its
+kernel, by :func:`power_spectrum_cost` and :func:`envelope_cepstrum_cost`,
+on either device.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
 from realtime_yukarin_tpu_torch.ops import cuda, dft
+from realtime_yukarin_tpu_torch.utils import cost
 
 CLUSTER = 8              # CTAs per thread-block cluster (portable maximum)
 SMEM_BYTES = 232_448     # dynamic shared memory one CTA may use on an H100
@@ -163,29 +168,44 @@ def power_spectrum_plain(frames: torch.Tensor, n: int) -> torch.Tensor:
     return dft.power_spectrum(frames * window, n)
 
 
+def power_spectrum_cost(R: int, n: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch: the two basis products, 2 FLOP per
+    multiply-add (the squares and the sum are not counted); frames, the
+    window, both bases and P each moved once."""
+    K = n // 2 + 1
+    return 4 * R * n * K, 4 * (R * n + n + 2 * n * K + R * K)
+
+
+def envelope_cepstrum_cost(R: int, K: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one launch: the three K x K basis products;
+    P, the lifter and the output, and two K x K bases, each moved once."""
+    return 6 * R * K * K, 4 * (3 * R * K + 2 * K * K)
+
+
 def power_spectrum_fused(frames: torch.Tensor, n: int) -> torch.Tensor:
     """|rfft(hann * frames)|^2.  frames [R, n] float32 -> [R, n//2+1]."""
     R = frames.shape[0]
     K = n // 2 + 1
     dev = frames.device
     cuda.check(frames, "frames", (R, n), dev)
-    if dev.type == "cpu":
-        return power_spectrum_plain(frames, n)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"power_spectrum_fused: no kernel for device {dev}")
-    plan = power_plan(R, n)
-    if frames.data_ptr() % 8:
-        raise ValueError("power_spectrum_fused: frames must be 8-byte "
-                         "aligned (the kernel copies them 8 bytes at a "
-                         "time)")
-    consts = _power_consts(n, str(dev))
-    cuda.hold(*consts.tensors)
-    (basis,) = consts.ptrs
-    out = torch.empty((R, K), dtype=torch.float32, device=dev)
-    cuda.POWER_SPECTRUM.launch(frames.data_ptr(), basis, out.data_ptr(),
-                               R, n, K, plan.row_tile, CLUSTER, DEPTH,
-                               TILE_BINS, BASIS_ROW)
-    return out
+    with cost.kernel("power_spectrum", (R, K), *power_spectrum_cost(R, n)):
+        if dev.type == "cpu":
+            return power_spectrum_plain(frames, n)
+        plan = power_plan(R, n)
+        if frames.data_ptr() % 8:
+            raise ValueError("power_spectrum_fused: frames must be 8-byte "
+                             "aligned (the kernel copies them 8 bytes at a "
+                             "time)")
+        consts = _power_consts(n, str(dev))
+        cuda.hold(*consts.tensors)
+        (basis,) = consts.ptrs
+        out = torch.empty((R, K), dtype=torch.float32, device=dev)
+        cuda.POWER_SPECTRUM.launch(frames.data_ptr(), basis, out.data_ptr(),
+                                   R, n, K, plan.row_tile, CLUSTER, DEPTH,
+                                   TILE_BINS, BASIS_ROW)
+        return out
 
 
 def envelope_cepstrum_plain(P: torch.Tensor, lift_half: torch.Tensor,
@@ -206,19 +226,22 @@ def envelope_cepstrum_fused(P: torch.Tensor, lift_half: torch.Tensor,
     dev = P.device
     cuda.check(P, "P", (R, n // 2 + 1), dev)
     cuda.check(lift_half, "lift_half", (R, K), dev)
-    if dev.type == "cpu":
-        return envelope_cepstrum_plain(P, lift_half, n, floor_db)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(
             f"envelope_cepstrum_fused: no kernel for device {dev}")
-    plan = cepstrum_plan(R, K)
-    consts = _cepstrum_consts(n, plan.width, str(dev))
-    cuda.hold(*consts.tensors)
-    (D,) = consts.ptrs
-    out = torch.empty((R, K), dtype=torch.float32, device=dev)
-    cuda.ENVELOPE_CEPSTRUM.launch(P.data_ptr(), lift_half.data_ptr(), D,
-                                  out.data_ptr(), R, K, plan.width, CLUSTER,
-                                  plan.rows_per_thread, plan.depth_warps,
-                                  10.0 ** (floor_db / 10.0),
-                                  prim.POWER_FLOOR)
-    return out
+    with cost.kernel("envelope_cepstrum", (R, K),
+                     *envelope_cepstrum_cost(R, K)):
+        if dev.type == "cpu":
+            return envelope_cepstrum_plain(P, lift_half, n, floor_db)
+        plan = cepstrum_plan(R, K)
+        consts = _cepstrum_consts(n, plan.width, str(dev))
+        cuda.hold(*consts.tensors)
+        (D,) = consts.ptrs
+        out = torch.empty((R, K), dtype=torch.float32, device=dev)
+        cuda.ENVELOPE_CEPSTRUM.launch(P.data_ptr(), lift_half.data_ptr(), D,
+                                      out.data_ptr(), R, K, plan.width,
+                                      CLUSTER, plan.rows_per_thread,
+                                      plan.depth_warps,
+                                      10.0 ** (floor_db / 10.0),
+                                      prim.POWER_FLOOR)
+        return out

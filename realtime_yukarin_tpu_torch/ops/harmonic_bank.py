@@ -12,6 +12,10 @@ a shared-memory transpose); on CPU tensors they are
 multi-resolution STFT loss through this Function.  Both kernels take their
 tiling from :func:`bank_plan`, on CUDA tensors only (the plain versions have
 no shared-memory limit).
+
+A cost count (``utils/cost.py``) sees each call as one launch of its
+kernel, by :func:`bank_forward_cost` and :func:`bank_backward_cost`, on
+either device.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from realtime_yukarin_tpu_torch.ops import cuda
+from realtime_yukarin_tpu_torch.utils import cost
 
 WARP = 32
 # A segment of a row's harmonics is whole groups of GROUP harmonics; the
@@ -228,43 +233,68 @@ def _check(amps_l, amps_r, phi, frac, *more) -> torch.device:
     return dev
 
 
+def bank_forward_cost(R: int, H: int, hop: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward launch: per row, sample and harmonic
+    two multiply-adds (the left and right sums) and the recurrence's
+    multiply-add, 6 FLOP; aL, aR, phi, frac and the output each moved
+    once."""
+    return 6 * R * hop * H, 4 * (2 * R * H + 2 * R * hop + hop)
+
+
+def bank_backward_cost(R: int, H: int, hop: int, phase: bool = True
+                       ) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward launch.  All four outputs: 7
+    multiply-adds per row, sample and harmonic (d_aL and d_aR 2, the sine
+    and cosine recurrences 2, d_phi 2 with h aL and h aR formed once per
+    row, d_frac 1), 14 FLOP.  Without ``phase`` (d_aL and d_aR only: the
+    sines alone), 3, 6 FLOP.  Each input and output moved once."""
+    if phase:
+        return 14 * R * hop * H, 4 * (4 * R * H + 4 * R * hop + hop)
+    return 6 * R * hop * H, 4 * (4 * R * H + 2 * R * hop + hop)
+
+
 def _bank_forward(amps_l, amps_r, phi, frac) -> torch.Tensor:
     dev = phi.device
-    if dev.type == "cpu":
-        return harmonic_bank_plain(amps_l, amps_r, phi, frac)
     R, H = amps_l.shape
     hop = phi.shape[1]
-    tiling = bank_plan(R, H, hop).launch_args(False)
-    out = torch.empty((R, hop), dtype=torch.float32, device=dev)
-    cuda.HARMONIC_BANK.launch(amps_l.data_ptr(), amps_r.data_ptr(),
-                              phi.data_ptr(), frac.data_ptr(),
-                              out.data_ptr(), R, H, hop, *tiling)
-    return out
+    with cost.kernel("harmonic_bank", (R, H, hop),
+                     *bank_forward_cost(R, H, hop)):
+        if dev.type == "cpu":
+            return harmonic_bank_plain(amps_l, amps_r, phi, frac)
+        tiling = bank_plan(R, H, hop).launch_args(False)
+        out = torch.empty((R, hop), dtype=torch.float32, device=dev)
+        cuda.HARMONIC_BANK.launch(amps_l.data_ptr(), amps_r.data_ptr(),
+                                  phi.data_ptr(), frac.data_ptr(),
+                                  out.data_ptr(), R, H, hop, *tiling)
+        return out
 
 
 def _bank_backward(amps_l, amps_r, phi, frac, g, phase: bool = True):
     """(d_aL, d_aR, d_phi, d_frac); without ``phase`` the kernel computes
     d_aL and d_aR only (sines, no cosines) and d_phi, d_frac are None."""
     dev = phi.device
-    if dev.type == "cpu":
-        d_al, d_ar, d_phi, d_frac = harmonic_bank_bwd_plain(amps_l, amps_r,
-                                                            phi, frac, g)
-        return (d_al, d_ar) + ((d_phi, d_frac) if phase else (None, None))
     R, H = amps_l.shape
     hop = phi.shape[1]
-    tiling = bank_plan(R, H, hop, backward=True).launch_args(True)
-    d_al, d_ar = (torch.empty((R, H), dtype=torch.float32, device=dev)
-                  for _ in range(2))
-    d_phi = d_frac = None
-    if phase:
-        d_phi, d_frac = (torch.empty((R, hop), dtype=torch.float32,
-                                     device=dev) for _ in range(2))
-    cuda.HARMONIC_BANK_BWD.launch(
-        amps_l.data_ptr(), amps_r.data_ptr(), phi.data_ptr(),
-        frac.data_ptr(), g.data_ptr(), d_al.data_ptr(), d_ar.data_ptr(),
-        d_phi.data_ptr() if phase else None,
-        d_frac.data_ptr() if phase else None, R, H, hop, *tiling)
-    return d_al, d_ar, d_phi, d_frac
+    with cost.kernel("harmonic_bank_bwd", (R, H, hop, phase),
+                     *bank_backward_cost(R, H, hop, phase)):
+        if dev.type == "cpu":
+            d_al, d_ar, d_phi, d_frac = harmonic_bank_bwd_plain(
+                amps_l, amps_r, phi, frac, g)
+            return (d_al, d_ar) + ((d_phi, d_frac) if phase
+                                   else (None, None))
+        tiling = bank_plan(R, H, hop, backward=True).launch_args(True)
+        d_al, d_ar = (torch.empty((R, H), dtype=torch.float32, device=dev)
+                      for _ in range(2))
+        d_phi = d_frac = None
+        if phase:
+            d_phi, d_frac = (torch.empty((R, hop), dtype=torch.float32,
+                                         device=dev) for _ in range(2))
+        cuda.HARMONIC_BANK_BWD.launch(
+            amps_l.data_ptr(), amps_r.data_ptr(), phi.data_ptr(),
+            frac.data_ptr(), g.data_ptr(), d_al.data_ptr(), d_ar.data_ptr(),
+            d_phi.data_ptr() if phase else None,
+            d_frac.data_ptr() if phase else None, R, H, hop, *tiling)
+        return d_al, d_ar, d_phi, d_frac
 
 
 def harmonic_bank_bwd(amps_l: torch.Tensor, amps_r: torch.Tensor,

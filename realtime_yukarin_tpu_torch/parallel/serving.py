@@ -22,8 +22,13 @@ and every split layer gathers its output channels there, so the step is
 collective over that group, and its ranks feed the same rows (the
 counterpart of the JAX rule that replicated values are passed alike).
 Resets ride the in-step mask; ``step`` and ``reset_stream`` refuse at
-more than one rank.  The JAX package's ``step_cost_analysis`` (XLA's cost
-model) is not ported.
+more than one rank.
+
+:meth:`BatchedServer.step_cost_analysis` counts one step's FLOPs and
+bytes, the counterpart of the JAX method that asks XLA's cost model: the
+port counts what the step dispatches (``utils/cost.py``), the same on the
+CPU and on the card.  :func:`model_stage_flops` is the counterpart of
+``bench.py``'s ``_model_stage_flops``: the learned stages' share of it.
 
 The server runs the batched step as one captured device program over
 static buffers (``streaming/program.py``; the counterpart of the JAX
@@ -40,7 +45,12 @@ import numpy as np
 import torch
 
 from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
-from realtime_yukarin_tpu_torch.models.voice_changer import params_to
+from realtime_yukarin_tpu_torch.models.acoustic import convert_mc_streamed
+from realtime_yukarin_tpu_torch.models.super_resolution import \
+    refine_envelope
+from realtime_yukarin_tpu_torch.models.vocoder_nn import vocoder_input_dim
+from realtime_yukarin_tpu_torch.models.voice_changer import (compute_dtype,
+                                                             params_to)
 from realtime_yukarin_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                                       shard_params)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
@@ -49,6 +59,7 @@ from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.state import (StreamCarry,
                                                         StreamGeometry,
                                                         tree_copy_, tree_map)
+from realtime_yukarin_tpu_torch.utils import cost
 
 
 def _lanes(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -112,6 +123,7 @@ class BatchedServer:
         mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
         self.device = resolve_device(device)
         self._cfg = cfg
+        self._mode, self._use_sr = mode, use_sr
         self.mesh = mesh if mesh is not None else make_mesh()
         dp = self.mesh.data_size
         n = -(-(num_streams or cfg.serving.num_streams) // dp) * dp
@@ -232,6 +244,49 @@ class BatchedServer:
         self._single("step()")
         return self.step_local(chunks, live, reset)
 
+    def count_step(self) -> cost.StepCount:
+        """One step of every local lane, counted (``utils/cost.py``): the
+        step of :func:`make_batched_step` at the server's shapes (one chunk
+        of zeros per lane, every lane live, none reset), eager, under
+        ``torch.no_grad()``, on a copy of the carries.  It runs twice: the
+        first run fills the device-constant caches (a capture's warm-up
+        does the same), the second is counted.  The server's lanes do not
+        advance and its captured program is not touched, so its next
+        replay gives what it would have given without the count.  Raises
+        inside a CUDA graph capture.  At model_parallel > 1 the step
+        gathers over the model group, so every rank of the group calls
+        this as it calls :meth:`step_local`; each counts its own lanes and
+        its own shard of every split layer."""
+        nl = len(self.local_slots)
+        chunks = torch.zeros((nl, self.chunk_samples), device=self.device)
+        live = torch.ones(nl, dtype=torch.bool, device=self.device)
+        reset = torch.zeros_like(live)
+        with torch.no_grad():
+            for _ in range(2):
+                carries = tree_map(torch.clone, self._carries)
+                with cost.StepCount() as count:
+                    self._step(self._params, self._init_carry, carries,
+                               chunks, self._keys, live, reset)
+        return count
+
+    def step_cost_analysis(self) -> dict:
+        """The cost of ONE batched step (every local lane advancing one
+        chunk): ``{'flops': ..., 'bytes accessed': ...}``, the JAX method's
+        keys, counted by :meth:`count_step`.
+
+        FLOPs are the matrix products' and convolutions' at 2 per
+        multiply-add (a convolution's taps on its padding included) plus
+        the port's kernels by their formulas (``ops/``); XLA's cost model
+        also counts elementwise ops and leaves out padded taps.  Bytes are
+        every op's inputs and outputs: an unfused upper bound, where XLA
+        counts a fused program.  The count is the same on the CPU and on
+        the card.  Unlike the JAX method it never returns None: the port
+        can always count, and an error raises.  Collective over the model
+        group at model_parallel > 1 (:meth:`count_step`)."""
+        count = self.count_step()
+        return {"flops": float(count.flops),
+                "bytes accessed": float(count.bytes)}
+
     def reset_stream(self, i: int) -> None:
         """Put lane i back to the stored init carry now, in place in the
         static carries; the other lanes are untouched.  One rank only."""
@@ -246,3 +301,56 @@ class BatchedServer:
         the static batched carry, which the next step updates in place (as
         a donated JAX carry is consumed); clone what must outlive it."""
         return tree_map(lambda c: c[i], self._carries)
+
+
+def model_stage_flops(server: BatchedServer) -> dict[str, int]:
+    """FLOPs of the learned stages in one step of ``server``'s local lanes,
+    each counted standalone (``utils/cost.py``) at the exact shapes the
+    step gives it: {"stage1": the conv stack streamed over the Fc fresh
+    frames with its per-layer caches, "stage2": super-resolution over the
+    stage-1 cache frames plus Fc (0 without SR), "vocoder": the server's
+    DDSP control net or wave decoder over Fc + 1 + 2 x its context frames
+    (0 in dsp mode)}.  Their sum is the learned share of
+    :meth:`BatchedServer.step_cost_analysis`; the rest is structural: the
+    analysis bases and kernels, selection one-hots, prefix sums, the
+    renderer.  The counterpart of ``bench.py``'s ``_model_stage_flops``;
+    at model_parallel > 1 each rank counts its shard of every split layer
+    (replicated layers count on every rank), and every rank of the model
+    group must call it.
+    """
+    cfg, geo = server._cfg, server._geo
+    params, dev = server._params, server.device
+    dtype = compute_dtype(cfg)
+    N, Fc = len(server.local_slots), geo.chunk_frames
+    dsp = cfg.dsp
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((N,) + shape, dtype=dtype, device=dev)
+
+    def flops(fn, *args) -> int:
+        with torch.no_grad(), cost.StepCount() as count:
+            fn(*args)
+        return count.flops
+
+    out = {"stage1": flops(
+        convert_mc_streamed, params["stage1"], zeros(Fc, dsp.mc_dim),
+        zeros(Fc), server._carries.stage1_acts, cfg.acoustic, dtype)}
+    out["stage2"] = flops(
+        refine_envelope, params["stage2"],
+        zeros(geo.stage1_cache_frames + Fc, dsp.spec_bins),
+        cfg.super_resolution, dsp, dtype) if server._use_sr else 0
+    ctx = {"ddsp": cfg.vocoder_nn.context_frames,
+           "wave": cfg.vocoder_wave.context_frames}.get(server._mode)
+    if ctx is None:
+        out["vocoder"] = 0
+        return out
+    x = zeros(Fc + 1 + 2 * ctx, vocoder_input_dim(dsp))
+    if server._mode == "ddsp":
+        out["vocoder"] = flops(params["vocoder"], x, dtype)
+    else:
+        L = Fc + 1
+        out["vocoder"] = flops(
+            params["vocoder_wave"], x, zeros(L), zeros(L),
+            zeros(L, dtype=torch.bool), zeros(), zeros(dtype=torch.bool),
+            zeros(cfg.vocoder_wave.phase_fractional), ctx, L, dtype)
+    return out

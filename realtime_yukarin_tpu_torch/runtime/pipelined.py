@@ -203,8 +203,11 @@ class PipelinedStream:
             elif inflight:
                 retire_oldest()                        # idle: drain early
             elif self._flushing.is_set():
-                self._drained.set()
-                self._flushing.clear()
+                # the flush's input lands before its flag is set, but may
+                # have landed after the first check of this pass
+                if self._in_rb.available < S:
+                    self._drained.set()
+                    self._flushing.clear()
             else:
                 time.sleep(0.0005)
         while inflight:

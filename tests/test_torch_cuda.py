@@ -391,3 +391,26 @@ def test_analysis_program_equals_the_eager_analysis(device, F):
     assert r["equal"] and r["program"].captured
     assert r["program"].kernel_launches == {"power_spectrum": 1,
                                             "envelope_cepstrum": 1}
+
+
+@pytest.mark.parametrize("mode", chip_smoke.VOCODER_MODES)
+def test_step_count_on_the_card_equals_the_cpu(device, mode):
+    """``BatchedServer.count_step`` on the card: the CPU's FLOPs, bytes and
+    learned-stage FLOPs at the same Config and weights, and the counted
+    kernel launches those of one replay's launch record."""
+    fails = []
+    chip_smoke.count_step_both(chip_smoke.vocoder_params(Config()), Config(),
+                               2, mode, mode, fails)
+    assert not fails, fails
+
+
+def test_step_count_refused_inside_a_capture(device):
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+    server = BatchedServer(chip_smoke.seeded_params(Config()), Config(),
+                           num_streams=1, device=device)
+    graph, one = torch.cuda.CUDAGraph(), torch.zeros(1, device=device)
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(),
+                          capture_error_mode="thread_local"):
+        one.add_(1.0)
+        with pytest.raises(RuntimeError, match="capture"):
+            server.step_cost_analysis()

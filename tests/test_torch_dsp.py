@@ -63,8 +63,21 @@ def test_primitives_equal_jax():
     assert t_prim.noise_fft_size(hop) == j_prim.noise_fft_size(hop)
 
 
-@pytest.mark.parametrize("n", [1022, 326])
+@pytest.mark.parametrize("n", [1022, 326, 979, 980])
 def test_dft_bases_equal_jax(n):
+    """979 is the odd frame length of the full-rate F0 search
+    (f0_decimation = 1), which once broke the JAX package's bases: both
+    packages refuse an odd n for every basis with a Nyquist bin, and the
+    search builds its bases at 980 (its frame rounded up to even)."""
+    if n % 2:
+        for name in ("rfft_bases", "irfft_bases", "cepstrum_basis",
+                     "cepstrum_inverse_basis", "autocorr_weights"):
+            for dft in (t_dft, j_dft):
+                with pytest.raises(AssertionError, match="even n"):
+                    getattr(dft, name)(n)
+        np.testing.assert_array_equal(t_dft.prefix_sum_matrix(n),
+                                      j_dft.prefix_sum_matrix(n))
+        return
     for name in ("rfft_bases", "irfft_bases"):
         for a, b in zip(getattr(t_dft, name)(n), getattr(j_dft, name)(n)):
             np.testing.assert_array_equal(a, b)
@@ -245,6 +258,28 @@ def _f0_agree(t, j):
     both = (t > 0) & (j > 0)
     if both.any():
         assert np.percentile(np.abs(t[both] - j[both]), 95) < 1.0
+
+
+def test_f0_full_rate_matches_jax_and_golden():
+    """f0_decimation = 1, the full-rate F0 search with its odd frame length,
+    against the jitted JAX estimate_f0 and against the golden model on the
+    0.4 s sweep, at tests/test_dsp_golden.py's gate for it."""
+    import dataclasses
+
+    import jax
+
+    from realtime_yukarin_tpu.golden import reference as ref
+    cfg1 = dataclasses.replace(CFG, f0_decimation=1)
+    assert cfg1.f0_frame_len % 2 == 1
+    x = make_test_signal("sweep", 0.4, cfg1.sample_rate)
+    F = len(x) // cfg1.hop
+    t = t_f0.estimate_f0(t32(x), F, cfg1).numpy()
+    j = jax.jit(j_f0.estimate_f0, static_argnums=(1, 2))(
+        jnp.asarray(x, jnp.float32), F, cfg1)
+    g = ref.estimate_f0(x, F, cfg1)
+    assert ((t > 0) & (g > 0)).any()
+    _f0_agree(t, j)
+    _f0_agree(t, g)
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -10,7 +10,11 @@ lanes beside it.  With the model split (two ranks, one model group) each
 rank serves all 8 lanes and gathers every split layer's channels; it
 agrees with one rank to 1e-6 of the peak, since the CPU's convolution and
 matrix product sum a half-width weight in another order (not bit for
-bit).  Tiny model config, float32, seeded perturbed weights."""
+bit).  Each rank also counts one step (``step_cost_analysis``) and its
+learned stages (``model_stage_flops``): over the data split the ranks'
+counts sum to one rank's; over the model split each rank counts its shard
+of every split layer and the replicated ones in full.  Tiny model config,
+float32, seeded perturbed weights."""
 
 import json
 
@@ -64,3 +68,20 @@ def test_model_split_matches_one_rank(runs):
         assert err < MP_TOL, err
         assert np.all(o["out"][2, 1] == 0.0)
     np.testing.assert_array_equal(outs[0]["out"], outs[1]["out"])
+
+
+def test_data_split_counts_sum_to_one_rank(runs):
+    one = tm.load(runs, "serve", "one", 0)
+    ranks = [tm.load(runs, "serve", "dp", r) for r in range(2)]
+    for key in ("flops", "model_flops"):
+        assert float(one[key]) > 0
+        assert sum(float(o[key]) for o in ranks) == float(one[key]), key
+    assert all(float(o["bytes"]) > 0 for o in ranks)
+
+
+def test_model_split_counts_each_rank_its_shard(runs):
+    one = float(tm.load(runs, "serve", "one", 0)["model_flops"])
+    ranks = [float(tm.load(runs, "serve", "mp", r)["model_flops"])
+             for r in range(2)]
+    assert all(0 < m < one for m in ranks), (ranks, one)
+    assert sum(ranks) >= one, (ranks, one)

@@ -216,6 +216,48 @@ def test_pipelined_depth_one_and_three(tiny):
     np.testing.assert_array_equal(outs[0][:n], outs[1][:n])
 
 
+class _LateInput:
+    """The input ring, where the producer's pushes land right after the
+    dispatch thread has read ``available`` once more (``late``)."""
+
+    def __init__(self, ring):
+        self._ring, self.late = ring, None
+
+    @property
+    def available(self):
+        n = self._ring.available
+        late, self.late = self.late, None
+        if late is not None:
+            late()
+        return n
+
+    def __getattr__(self, name):
+        return getattr(self._ring, name)
+
+
+def test_pipelined_flush_after_a_stale_input_check(tiny):
+    """A flush whose input and flag land between the dispatch thread's
+    check of the input ring and its check of the flag still converts every
+    chunk (the thread reads the ring again before it calls the stream
+    drained)."""
+    cfg, params = tiny
+    x = make_test_signal("harmonic", 0.4, cfg.dsp.sample_rate).astype(
+        np.float32)
+    with PipelinedStream(params, cfg, seed=0, device="cpu") as pipe:
+        ring = pipe._in_rb = _LateInput(pipe._in_rb)
+        S = pipe.chunk_samples
+        n_lat = -(-pipe.latency_samples // pipe.chunk_out_samples)
+
+        def producer():
+            ring.push(x)
+            ring.push(np.zeros((n_lat + 1) * S, np.float32))
+            pipe._flushing.set()
+
+        ring.late = producer
+        assert pipe._drained.wait(60)
+        assert pipe.output_available() >= len(x) // S * S
+
+
 def test_pipelined_defaults_to_cuda_without_fallback(tiny):
     cfg, params = tiny
     if torch.cuda.is_available():

@@ -164,7 +164,8 @@ def socket_signal(rank: int, fs: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def _serve(cfg, params, mesh, opts) -> dict:
-    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+    from realtime_yukarin_tpu_torch.parallel.serving import (
+        BatchedServer, model_stage_flops)
     server = BatchedServer(params, cfg, num_streams=opts["n"], mesh=mesh,
                            device="cpu")
     n, S = server.num_streams, server.chunk_samples
@@ -173,8 +174,14 @@ def _serve(cfg, params, mesh, opts) -> dict:
     outs = [server.step_local(chunks[lo:hi, k], live=live[k, lo:hi],
                               reset=reset[k, lo:hi])
             for k in range(opts["ticks"])]
+    # this rank's count of one step (collective over a model group)
+    step_cost = server.step_cost_analysis()
     return {"out": np.stack(outs), "range": np.asarray([lo, hi]),
-            "num_streams": np.asarray(n)}
+            "num_streams": np.asarray(n),
+            "flops": np.asarray(step_cost["flops"]),
+            "bytes": np.asarray(step_cost["bytes accessed"]),
+            "model_flops": np.asarray(
+                sum(model_stage_flops(server).values()))}
 
 
 def _socket(cfg, params, mesh, opts, world: int) -> dict:
