@@ -1200,7 +1200,8 @@ def profile_stats(fn, n: int) -> dict:
     summed; one stream, so they do not overlap), idle share, GPU launches
     per call, the host's launch, copy and fill calls per call
     (LAUNCH_API), each port kernel's (device us per launch, launches per
-    call) and {GPU event name: [device us, ...]}.  The GPU-side spans of
+    call), {GPU event name: [device us, ...]} and the GPU events as
+    (name, start us, end us) (``ops``).  The GPU-side spans of
     user annotations overlap the kernels they contain and are left out.
     CUPTI lists a replayed CUDA graph's kernels one by one
     (``lists_replays`` checks it)."""
@@ -1237,7 +1238,9 @@ def profile_stats(fn, n: int) -> dict:
     return dict(wall_ms=wall * 1e3 / n, busy_ms=busy / n,
                 idle=(1.0 - busy / (wall * 1e3)) if events else None,
                 gpu_launches=len(events) / n,
-                host_launches=host_launches / n, port=port, by_name=by_name)
+                host_launches=host_launches / n, port=port, by_name=by_name,
+                ops=[(e.name, e.time_range.start, e.time_range.end)
+                     for e in events])
 
 
 def throughput_phase(cfg) -> dict:

@@ -16,6 +16,12 @@ record is kept per capturing stream, not per thread: a backward captured
 with its forward runs on autograd's own worker thread, on the same
 stream.
 
+The stage markers (``csrc/stage_mark.cu``, ``utils/profiling.py:mark``)
+do no work and are not among ``KERNELS``: they go through
+:meth:`CudaKernel.call`, which neither counts nor records, so a program's
+launch record and counts stay those of the kernels that compute.
+:func:`build` compiles them with the kernels, before any capture.
+
 Nothing is compiled or loaded at import time: the CPU tests import every
 module of the port on a machine with no ``nvcc`` and no card.
 """
@@ -97,14 +103,21 @@ class CudaKernel:
             self._fn, self._err = fn, err
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the launcher on the current stream; raise on a CUDA error."""
+    def call(self, *args) -> int:
+        """Call the launcher on the current stream, uncounted; raise on a
+        CUDA error.  Returns the stream's handle."""
         fn = self._load()
         stream = current_stream()
         code = fn(*args, stream)
         if code != 0:
             raise RuntimeError(f"{self.name}: CUDA error {code} "
                                f"({self._err(code).decode()})")
+        return stream
+
+    def launch(self, *args) -> None:
+        """Call the launcher on the current stream; raise on a CUDA error.
+        Counted, or recorded by the capture on that stream."""
+        stream = self.call(*args)
         capture = _capture_on(stream)
         if capture is not None:
             with _lock:
@@ -197,6 +210,8 @@ HARMONIC_BANK_BWD = CudaKernel(
                           _I, _P))
 KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM,
            HARMONIC_BANK_BWD)
+# the stage index, utils/profiling.py:STAGES
+STAGE_MARK = CudaKernel("stage_mark", (_I, _P))
 
 
 def reset_counts() -> None:
@@ -204,8 +219,9 @@ def reset_counts() -> None:
         k.launches = 0
 
 
-def build(kernels=KERNELS) -> dict[str, str]:
-    """Compile every missing library, one ``nvcc`` per source, all at once.
+def build(kernels=KERNELS + (STAGE_MARK,)) -> dict[str, str]:
+    """Compile every missing library, one ``nvcc`` per source, all at once
+    (by default every source: the kernels and the stage markers).
 
     Returns {kernel name: nvcc's ``-Xptxas -v`` report} for the sources
     compiled by this call (empty where the library was already built).

@@ -59,7 +59,7 @@ from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.state import (StreamCarry,
                                                         StreamGeometry,
                                                         tree_copy_, tree_map)
-from realtime_yukarin_tpu_torch.utils import cost
+from realtime_yukarin_tpu_torch.utils import cost, profiling
 
 
 def _lanes(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -82,15 +82,22 @@ def make_batched_step(cfg: Config, use_sr: bool = True,
     False lane keeps its carry bit for bit and emits zeros, so a stream
     whose producer has not delivered a chunk is paused instead of being
     fed silence.  Both are ``torch.where`` over every carry leaf.
+
+    The step marks its stages on the device (``utils/profiling.py``):
+    ``carry_in`` (the reset mask), the stages of :func:`streaming_step`,
+    then ``carry_out`` (the live mask); the caller marks ``end`` once the
+    carry is stored.
     """
     mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
 
     def step(params, init_carry, carries, chunks, keys, live, reset):
+        profiling.mark("carry_in", chunks)
         carries = tree_map(
             lambda init, c: torch.where(_lanes(reset, c), init, c),
             init_carry, carries)
         out, new = streaming_step(params, carries, chunks, keys, cfg,
                                   use_sr, vocoder_mode=mode)
+        profiling.mark("carry_out", chunks)
         kept = tree_map(
             lambda n, old: torch.where(_lanes(live, n), n, old),
             new, carries)
@@ -173,6 +180,7 @@ class BatchedServer:
                                   self._carries, self._chunks, self._keys,
                                   self._live, self._reset)
         tree_copy_(self._carries, carries)
+        profiling.mark("end", self._chunks)
         return out
 
     @property
@@ -209,24 +217,25 @@ class BatchedServer:
                                f"rank feeds its own rows (and resets) "
                                f"through step_local()")
 
-    def step_device(self, chunks: torch.Tensor, live=None, reset=None
-                    ) -> torch.Tensor:
-        """chunks [n, chunk_samples] (on the device, or the host: they are
-        copied into the step's static input) -> converted [n,
-        chunk_out_samples] on the device, n the lanes of ``local_slots``
-        (all N on one rank), with no host synchronisation when the chunks
-        and the masks are device tensors (or the masks None).  ``live``
-        (optional [n] bool) pauses False lanes: their carry is kept and
-        their output is zeros.  ``reset`` ([n] bool) puts a lane back to
-        the init carry before its chunk.  The output is the caller's: the
-        next step does not change it."""
-        expected = (len(self.local_slots), self.chunk_samples)
-        if tuple(chunks.shape) != expected:
-            raise ValueError(f"chunks of shape {tuple(chunks.shape)}, "
-                             f"expected {expected}")
-        self._chunks.copy_(chunks)
-        self._set_mask(self._live, live, True)
-        self._set_mask(self._reset, reset, False)
+    def step_device(self, chunks, live=None, reset=None) -> torch.Tensor:
+        """chunks [n, chunk_samples] (a tensor on the device or the host,
+        or a host array: they are copied into the step's static input) ->
+        converted [n, chunk_out_samples] on the device, n the lanes of
+        ``local_slots`` (all N on one rank), with no host synchronisation
+        when the chunks and the masks are device tensors (or the masks
+        None).  ``live`` (optional [n] bool) pauses False lanes: their
+        carry is kept and their output is zeros.  ``reset`` ([n] bool) puts
+        a lane back to the init carry before its chunk.  The output is the
+        caller's: the next step does not change it."""
+        with profiling.span("host.serve.copy_in"):
+            chunks = torch.as_tensor(chunks, dtype=torch.float32)
+            expected = (len(self.local_slots), self.chunk_samples)
+            if tuple(chunks.shape) != expected:
+                raise ValueError(f"chunks of shape {tuple(chunks.shape)}, "
+                                 f"expected {expected}")
+            self._chunks.copy_(chunks)
+            self._set_mask(self._live, live, True)
+            self._set_mask(self._reset, reset, False)
         return self.program()
 
     def step_local(self, chunks_local: np.ndarray, live=None, reset=None
@@ -235,8 +244,9 @@ class BatchedServer:
         slots ``local_slots`` -> converted [n_local, chunk_out_samples]
         (host arrays); the masks [n_local] as in :meth:`step_device`.  One
         rank: exactly :meth:`step`."""
-        x = torch.from_numpy(np.ascontiguousarray(chunks_local, np.float32))
-        return self.step_device(x, live, reset).cpu().numpy()
+        out = self.step_device(chunks_local, live, reset)
+        with profiling.span("host.serve.copy_out"):
+            return out.cpu().numpy()
 
     def step(self, chunks: np.ndarray, live=None, reset=None) -> np.ndarray:
         """chunks [N, chunk_samples] -> converted [N, chunk_out_samples],

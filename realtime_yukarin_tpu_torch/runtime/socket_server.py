@@ -59,6 +59,7 @@ import torch.distributed as dist
 from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
 from realtime_yukarin_tpu_torch.runtime import RingBuffer
+from realtime_yukarin_tpu_torch.utils import profiling
 from realtime_yukarin_tpu_torch.utils.metrics import ServingMetrics
 
 
@@ -378,7 +379,27 @@ class SocketVoiceServer:
                 return
             self._server.step_device(c, lv, rs)
 
+    def _push(self, out: np.ndarray, live: np.ndarray, gens: list) -> None:
+        """Each live lane's output into its slot's ring."""
+        for i in np.flatnonzero(live):
+            s = self._slots[i]
+            with self._lock:
+                # drop the output if the slot was reclaimed mid-step
+                # (never leak one client's audio into the next)
+                if not s.active or s.gen != gens[i]:
+                    continue
+                pushed = s.out_rb.push(out[i])
+            if pushed < self._So:
+                self.metrics.incr("output_overruns")
+            if s.eof and s.drain_left <= 0:
+                s.done.set()
+
     def _tick_loop_impl(self) -> None:
+        """One tick: scan the slots for chunks and masks (span
+        ``host.tick.scan``), step (``host.tick.step``), push each live
+        lane's output to its ring (``host.tick.push``).  Each tick that
+        steps counts its paused lanes (a caller's lane not live:
+        ``lane_ticks_paused``) and its resets (``lane_resets``)."""
         S = self._S
         period = (S / self._cfg.dsp.in_rate / self._rt
                   if self._rt > 0 else 0.0)
@@ -386,12 +407,15 @@ class SocketVoiceServer:
         chunks = np.zeros((N, S), np.float32)
         live = np.zeros((N,), bool)
         reset = np.zeros((N,), bool)
+        held = np.zeros((N,), bool)       # a caller holds the lane
         while not self._stop.is_set():
             t0 = time.perf_counter()
             live[:] = False
             reset[:] = False
+            held[:] = False
             gens = [0] * N
-            with self._lock:     # claim/free cannot interleave the scan
+            # claim/free cannot interleave the scan
+            with profiling.span("host.tick.scan"), self._lock:
                 for i, s in enumerate(self._slots):
                     if s.pending_reset:
                         # applied before this tick's chunk (in-step mask);
@@ -401,6 +425,7 @@ class SocketVoiceServer:
                     if not s.active or s.done.is_set():
                         chunks[i] = 0.0
                         continue
+                    held[i] = True
                     if not period and s.out_rb.free_space < self._So:
                         # free-running backpressure: a slow reader
                         # pauses ITS slot (carry untouched, input queues
@@ -430,22 +455,16 @@ class SocketVoiceServer:
                     continue
                 # the model group's other ranks wait in the broadcast:
                 # tick anyway (the sleep bounds the spin)
+            self.metrics.incr("lane_ticks_paused",
+                              int(np.count_nonzero(held & ~live)))
+            self.metrics.incr("lane_resets", int(np.count_nonzero(reset)))
             t_lat = time.perf_counter()
-            out = self._step(chunks, live, reset)
+            with profiling.span("host.tick.step"):
+                out = self._step(chunks, live, reset)
             self.metrics.chunk_latency.record(
                 1000.0 * (time.perf_counter() - t_lat))
-            for i in np.flatnonzero(live):
-                s = self._slots[i]
-                with self._lock:
-                    # drop the output if the slot was reclaimed mid-step
-                    # (never leak one client's audio into the next)
-                    if not s.active or s.gen != gens[i]:
-                        continue
-                    pushed = s.out_rb.push(out[i])
-                if pushed < self._So:
-                    self.metrics.incr("output_overruns")
-                if s.eof and s.drain_left <= 0:
-                    s.done.set()
+            with profiling.span("host.tick.push"):
+                self._push(out, live, gens)
             if period:
                 dt = time.perf_counter() - t0
                 if dt < period:

@@ -50,6 +50,7 @@ from realtime_yukarin_tpu_torch.streaming.state import (StreamCarry,
                                                         input_plan,
                                                         noise_bins,
                                                         output_plan)
+from realtime_yukarin_tpu_torch.utils import profiling
 
 NOISE_TABLE_FRAMES = 4096   # ~20 s of excitation before the table wraps
 _NOISE_TABLE_SEED = 0x5EED
@@ -181,6 +182,9 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     Every stream's frames go through each kernel together: one launch per
     kernel per step, whatever N.  ``vocoder_mode`` ("dsp", "ddsp" or
     "wave") must be the one the carry was made for (:func:`init_stream`).
+    Each stage begins with its marker on the device
+    (``utils/profiling.py``): ``resample_in``, ``analysis``, ``stage1``,
+    ``sr`` (also without SR), ``render`` and ``resample_out``.
     """
     mode = resolve_vocoder_mode(False, vocoder_mode)
     geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
@@ -188,13 +192,16 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     hop = dsp.hop
     Fc = geo.chunk_frames
     mctx = geo.model_ctx
+    like = carry.wave_buf
 
     # 0. resample the client chunk to the internal rate (a hop-aligned
     # delay, so the rest of the step is oblivious)
+    profiling.mark("resample_in", like)
     chunk, rs_in = resample_chunk(carry.rs_in, chunk.to(carry.wave_buf),
                                   input_plan(dsp, geo.chunk_samples))
 
     # 1. roll the wave buffer and append the new chunk
+    profiling.mark("analysis", like)
     buf = torch.cat([carry.wave_buf[..., geo.chunk_samples:], chunk],
                     dim=-1)
 
@@ -242,6 +249,7 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     L = Fc + 1
     Lv = L + 2 * ctx_v
     s = mctx - ctx_v                          # first frame synthesis reads
+    profiling.mark("stage1", like)
     res, stage1_acts = convert_mc_streamed(
         params["stage1"], mc_all[..., Fn - E - Fc: Fn - E, :],
         f0_all[..., Fn - E - Fc: Fn - E], carry.stage1_acts, cfg.acoustic,
@@ -251,6 +259,7 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     f0c_need = convert_f0_stats(f0_all[..., c1 + E: Fn - c1 - E],
                                 params["f0_stats"])
     env_low = decode_mcep(mc_c_need, dsp)
+    profiling.mark("sr", like)
     if use_sr:
         env_mid = refine_envelope(params["stage2"], env_low,
                                   cfg.super_resolution, dsp, dtype)
@@ -262,6 +271,7 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     apv, mcv = ap_all[..., s: s + Lv, :], mc_c_need[..., need, :]
 
     # 4. synthesize Fc frames with position-deterministic noise
+    profiling.mark("render", like)
     noise = frame_noise(noise_key, carry.frame_pos, Fc, noise_bins(cfg),
                         like=buf)
     if mode == "ddsp":
@@ -281,6 +291,7 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
                                       carry.synth)
 
     # 5. resample the converted chunk to the client output rate
+    profiling.mark("resample_out", like)
     out, rs_out = resample_chunk(carry.rs_out, out,
                                  output_plan(dsp, geo.chunk_samples))
 

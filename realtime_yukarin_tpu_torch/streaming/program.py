@@ -33,6 +33,7 @@ import torch
 from realtime_yukarin_tpu_torch.ops import cuda
 from realtime_yukarin_tpu_torch.streaming.state import (snapshot, tree_copy_,
                                                         tree_map)
+from realtime_yukarin_tpu_torch.utils import profiling
 
 
 def _pool_bytes(pool) -> int:
@@ -155,12 +156,13 @@ class CapturedProgram:
         self.pool_bytes = _pool_bytes(pool)
 
     def __call__(self):
-        if self._graph is None:
-            with self._grad_mode():
-                return self._body()
-        self._graph.replay()
-        self._capture.replayed()
-        return tree_map(torch.clone, self._out)
+        with profiling.span("host.program.call"):
+            if self._graph is None:
+                with self._grad_mode():
+                    return self._body()
+            self._graph.replay()
+            self._capture.replayed()
+            return tree_map(torch.clone, self._out)
 
     def summary(self) -> str:
         """One line: how the program runs, its capture time and pool."""

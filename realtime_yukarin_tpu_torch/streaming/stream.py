@@ -17,6 +17,7 @@ from realtime_yukarin_tpu_torch.streaming.pipeline import (
 from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.segment import SegmentBuffer
 from realtime_yukarin_tpu_torch.streaming.state import tree_copy_
+from realtime_yukarin_tpu_torch.utils import profiling
 
 
 class VoiceChangerStream:
@@ -73,10 +74,15 @@ class VoiceChangerStream:
         return self._geo.latency_out_samples(self._cfg.dsp)
 
     def _step(self) -> torch.Tensor:
+        # the batched step's stage markers; one stream has no masks, so
+        # carry_in is empty and carry_out holds the carry's store
+        profiling.mark("carry_in", self._chunk)
         y, carry = streaming_step(self._params, self._carry, self._chunk,
                                   self._noise_key, self._cfg, self._use_sr,
                                   vocoder_mode=self._mode)
+        profiling.mark("carry_out", self._chunk)
         tree_copy_(self._carry, carry)
+        profiling.mark("end", self._chunk)
         return y
 
     def step_device(self, chunk: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
 from realtime_yukarin_tpu_torch.streaming.pipeline import resolve_device
 from realtime_yukarin_tpu_torch.training.train_step import Batch
+from realtime_yukarin_tpu_torch.utils import profiling
 
 ALIGNED = ("f0_src", "mc_src", "ap_src", "f0_tgt", "mc_tgt", "env_tgt")
 VOC = ("f0_voc", "mc_voc", "ap_voc", "env_voc")
@@ -104,30 +105,37 @@ class CorpusDataset:
         return len(self._files)
 
     def sample_batch(self, batch_size: int) -> Batch:
+        """``batch_size`` random crops and their noise on the host (span
+        ``host.data.draw``), then each field stacked and copied to the
+        device (``host.data.copy_in``)."""
         F = self._F
         hop = self._cfg.dsp.hop
         rows = {k: [] for k in ALIGNED + VOC}
         waves = []
-        for _ in range(batch_size):
-            u = self._load(int(self._rng.integers(len(self._files))))
-            max_start = max(0, u["f0_src"].shape[0] - (F + 1))
-            s = int(self._rng.integers(max_start + 1))
-            for k in ALIGNED:
-                rows[k].append(crop_rows(u[k], s, F + 1))
-            # independent crop on the target's own timeline, bounded so
-            # the raw-audio window [s2*hop, (s2+F)*hop) exists in full
-            Fv = u["f0_voc"].shape[0]
-            max_v = max(0, min(Fv - (F + 1), len(u["wave_voc"]) // hop - F))
-            s2 = int(self._rng.integers(max_v + 1))
-            for k in VOC:
-                rows[k].append(crop_rows(u[k], s2, F + 1))
-            waves.append(crop_rows(u["wave_voc"].reshape(-1, hop), s2,
-                                   F).reshape(-1))
-        noise = self._rng.standard_normal((batch_size, F, self._k_noise, 2))
+        with profiling.span("host.data.draw"):
+            for _ in range(batch_size):
+                u = self._load(int(self._rng.integers(len(self._files))))
+                max_start = max(0, u["f0_src"].shape[0] - (F + 1))
+                s = int(self._rng.integers(max_start + 1))
+                for k in ALIGNED:
+                    rows[k].append(crop_rows(u[k], s, F + 1))
+                # independent crop on the target's own timeline, bounded so
+                # the raw-audio window [s2*hop, (s2+F)*hop) exists in full
+                Fv = u["f0_voc"].shape[0]
+                max_v = max(0, min(Fv - (F + 1),
+                                   len(u["wave_voc"]) // hop - F))
+                s2 = int(self._rng.integers(max_v + 1))
+                for k in VOC:
+                    rows[k].append(crop_rows(u[k], s2, F + 1))
+                waves.append(crop_rows(u["wave_voc"].reshape(-1, hop), s2,
+                                       F).reshape(-1))
+            noise = self._rng.standard_normal(
+                (batch_size, F, self._k_noise, 2))
 
         def dev(a) -> torch.Tensor:
             return torch.from_numpy(
                 np.asarray(a, np.float32)).to(self.device)
 
-        return Batch(wave_voc=dev(np.stack(waves)), noise=dev(noise),
-                     **{k: dev(np.stack(v)) for k, v in rows.items()})
+        with profiling.span("host.data.copy_in"):
+            return Batch(wave_voc=dev(np.stack(waves)), noise=dev(noise),
+                         **{k: dev(np.stack(v)) for k, v in rows.items()})

@@ -61,6 +61,7 @@ from realtime_yukarin_tpu_torch.parallel.mesh import (
 from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.state import tree_map
 from realtime_yukarin_tpu_torch.training import losses
+from realtime_yukarin_tpu_torch.utils import profiling
 
 WEIGHT_DECAY = 1e-5      # optax.adamw(lr, weight_decay=1e-5)
 MAX_NORM = 1.0           # clip_per_stage(1.0)
@@ -259,9 +260,12 @@ def loss_and_grads(params: dict, batch: Batch, cfg: Config,
                    mesh: Mesh | None = None
                    ) -> tuple[dict, dict[str, list[torch.Tensor]]]:
     """(metrics, gradients by subtree) — ``jax.value_and_grad(loss_fn)``;
-    with ``mesh``, the global batch's, on every rank; deterministic."""
+    with ``mesh``, the global batch's, on every rank; deterministic.
+    Marks the ``forward`` and ``backward`` stages on the device."""
     with deterministic():
+        profiling.mark("forward", batch.f0_src)
         total, metrics = loss_fn(params, batch, cfg, mesh)
+        profiling.mark("backward", batch.f0_src)
         return metrics, gradients(total, params, mesh)
 
 
@@ -269,9 +273,13 @@ def joint_step_body(state: TrainState, batch: Batch, cfg: Config,
                     mesh: Mesh | None = None) -> dict:
     """One joint step on ``state`` in place (its host ``step`` count
     aside): the eager body that :func:`make_train_step` captures, and the
-    reference its replays are held to.  Returns the metrics."""
+    reference its replays are held to.  Returns the metrics.  Its stages
+    are marked on the device: ``forward``, ``backward``, ``optimizer``,
+    ``end`` (``utils/profiling.py``)."""
     metrics, grads = loss_and_grads(state.params, batch, cfg, mesh)
+    profiling.mark("optimizer", batch.f0_src)
     apply_gradients(state.opt, state.params, grads, mesh)
+    profiling.mark("end", batch.f0_src)
     return metrics
 
 
@@ -350,8 +358,9 @@ class StepProgram:
         if sig != self._sig:
             self._build(state, batch, leaves)
             self._sig = sig
-        for dst, src in zip(_batch_tensors(self._batch), tensors):
-            dst.copy_(src)
+        with profiling.span("host.train.copy_in"):
+            for dst, src in zip(_batch_tensors(self._batch), tensors):
+                dst.copy_(src)
         metrics = self.program()
         state.step += 1
         return state, metrics
@@ -408,14 +417,18 @@ def _log_env(env: torch.Tensor) -> torch.Tensor:
 def gan_losses_and_grads(state: GanTrainState, batch: Batch, cfg: Config,
                          adv_weight: float = 0.02, mesh: Mesh | None = None):
     """(metrics, generator gradients, discriminator gradients) at the
-    state's generator and discriminator: the first half of the GAN step."""
+    state's generator and discriminator: the first half of the GAN step.
+    Both players' losses come first (the ``forward`` stage), then both
+    gradients (``backward``)."""
     disc = state.d_params
     with deterministic():
+        profiling.mark("forward", batch.f0_src)
         base, metrics, env_pred = _losses(state.params, batch, cfg, mesh)
         l_adv = g_hinge_loss(disc(_log_env(env_pred)), mesh)
-        g_grads = gradients(base + adv_weight * l_adv, state.params, mesh)
         ld = d_hinge_loss(disc(_log_env(batch.env_tgt)),
                           disc(_log_env(env_pred.detach())), mesh)
+        profiling.mark("backward", batch.f0_src)
+        g_grads = gradients(base + adv_weight * l_adv, state.params, mesh)
         d_grads = gradients(ld, {"params": disc}, mesh)
     return (dict(metrics, adv=l_adv.detach(), d_loss=ld.detach()), g_grads,
             d_grads)
@@ -426,9 +439,10 @@ def gan_step_body(state: GanTrainState, batch: Batch, cfg: Config,
                   mesh: Mesh | None = None) -> dict:
     """One GAN step on ``state`` in place (its host ``step`` count aside):
     the eager body that :func:`make_gan_train_step` captures.  Returns the
-    metrics."""
+    metrics; its stages marked as :func:`joint_step_body`'s."""
     metrics, g_grads, d_grads = gan_losses_and_grads(
         state, batch, cfg, adv_weight, mesh)
+    profiling.mark("optimizer", batch.f0_src)
     apply_gradients(state.opt, state.params, g_grads, mesh)
     apply_gradients(state.d_opt, {"params": state.d_params}, d_grads, mesh)
     ema = param_leaves(state.ema_params)
@@ -436,6 +450,7 @@ def gan_step_body(state: GanTrainState, batch: Batch, cfg: Config,
         for k, ps in param_leaves(state.params).items():
             for e, p in zip(ema[k], ps):
                 e.mul_(ema_decay).add_(p, alpha=1.0 - ema_decay)
+    profiling.mark("end", batch.f0_src)
     return metrics
 
 

@@ -32,7 +32,8 @@ time per step (sum of GPU kernel and copy durations; one stream, so they do
 not overlap; the profiler lists a replayed graph's kernels one by one),
 the device idle share, the GPU launches and the host's launch and
 copy calls per step, the GPU kernels by total time and the port's kernels'
-time per launch.
+time per launch, and the device ms per stage of the step, split by the
+program's stage markers as the benchmark splits it (``benchmark/stages.py``).
 """
 
 from __future__ import annotations
@@ -71,6 +72,10 @@ def profile_window(label: str, fn, n: int, program=None) -> None:
         print(f"[profile] {label}: port kernel {kname}: "
               f"{float('nan') if us is None else us:.1f} us/launch, "
               f"{per_call:.1f} launches/step")
+    from benchmark import stages
+    for stage, us in stages.split(st["ops"]).items():
+        print(f"[profile] {label}: stage {stage}: {us / n / 1e3:.3f} "
+              f"ms/step")
 
 
 def profile_stream(steps: int, mode: str, rate: int | None) -> None:
