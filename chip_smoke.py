@@ -38,7 +38,12 @@ non-zero):
    floor (the device time of an in-place add on a one-element tensor).  The
    analysis kernels are also checked, unprofiled, at ragged R = 1, 21, 1281
    and at fft_size 1024 (K = 513) for every R above, and both bank kernels
-   at ragged (R, H, hop) (BANK_RAGGED_CASES);
+   at ragged (R, H, hop) (BANK_RAGGED_CASES).  The analysis kernels are
+   also timed at the serve cells' R = 2,048 and 10,240 (SERVE_CELL_ROWS),
+   and both of their designs (the cluster one and the wide one, which the
+   wrappers pick by R) side by side at DESIGN_ROWS, each against the plain
+   version and float64, with their times, and at ragged R = 2,049 and
+   10,239;
 4. main path: ``VoiceChangerStream(device="cuda")`` at the default Config
    (full width, bf16 models, seeded perturbed weights) on 3 s of a seeded
    voiced/unvoiced signal in 100 ms chunks, then ``flush()``; checks the
@@ -233,6 +238,16 @@ KERNEL_ROWS = (20, TRAIN_FRAMES, QUALITY_ROWS, OFFLINE_FRAMES,
 ANALYSIS_KERNELS = ("power_spectrum", "envelope_cepstrum")
 RAGGED_CASES = tuple((1022, R) for R in (1, 21, 1281)) + tuple(
     (1024, R) for R in (1, 20, 21, 100, 800, 1280, 1281))
+# The serve cells' rows (512 lanes of the 20 ms and of the default profile,
+# benchmark/configs): the analysis kernels timed there too, with bound,
+# plain version and library call
+SERVE_CELL_ROWS = (4 * 512, 20 * 512)
+# Both designs of kernels 2-3 (ops/analysis.py: the cluster design below
+# POWER_WIDE_ROWS / CEPSTRUM_WIDE_ROWS rows, the wide one from there) timed
+# and held to float64 at the crossover table's rows, and held at ragged rows
+# past the serve cells'
+DESIGN_ROWS = (128, 256, 320, 600, 800, 1024, 1280, 2048, 10240)
+DESIGN_RAGGED_ROWS = (2049, 10239)
 # Both bank kernels at ragged (R, H, hop): one row, one past a row block,
 # one past the batch; one harmonic, one past a 32-group, the COMPAT 128,
 # the default 161; the default hop and one above 128 that is no multiple of
@@ -507,6 +522,59 @@ def kernel_phase(kname: str, R: int, n: int, case: Case,
                 plain_device_ms=plain_dev, library_device_ms=lib_dev)
 
 
+def designs_phase(cfg, dev, rng) -> None:
+    """Both designs of the power spectrum and the envelope cepstrum on the
+    same inputs at DESIGN_ROWS (timed: CUDA events, 50 calls) and
+    DESIGN_RAGGED_ROWS: each one's error against the plain version and
+    against float64, which design the wrappers pick, and the wide design's
+    float64 error beside the cluster design's."""
+    import torch
+    from realtime_yukarin_tpu_torch.ops import analysis as an
+    n = cfg.dsp.fft_size
+    K = n // 2 + 1
+    db = cfg.dsp.envelope_floor_db
+    designs = {
+        "power_spectrum": (lambda R: an.cluster_power_plan(R, n),
+                           lambda R: an.WIDE_POWER_PLAN),
+        "envelope_cepstrum": (lambda R: an.cluster_cepstrum_plan(R, K),
+                              lambda R: an.wide_cepstrum_plan(K))}
+    for R in DESIGN_ROWS + DESIGN_RAGGED_ROWS:
+        timed = R in DESIGN_ROWS
+        cases = kernel_cases(R, cfg, dev, rng)
+        (frames,) = cases["power_spectrum"].inputs
+        P, lift = cases["envelope_cepstrum"].inputs
+        for kname, plans in designs.items():
+            case = cases[kname]
+            plain, ref64 = case.plain(), case.ref64()
+            picked = (an.power_plan(R, n) if kname == "power_spectrum"
+                      else an.cepstrum_plan(R, K))
+            line, e64 = f"[designs] {kname} R={R}:", {}
+            for label, plan_of in zip(("cluster", "wide"), plans):
+                plan = plan_of(R)
+
+                def call(plan=plan):
+                    if kname == "power_spectrum":
+                        return an.power_spectrum_launch(frames, n, plan)
+                    return an.envelope_cepstrum_launch(P, lift, n, db, plan)
+                out = call()
+                _, err = abs_rel_err(out, plain)
+                _, e64[label] = abs_rel_err(out.double(), ref64)
+                torch.cuda.synchronize()
+                ok = err <= TOL[kname]
+                line += (f" {label}{' (picked)' if plan == picked else ''}"
+                         f" /peak {err:.3e}, vs float64 {e64[label]:.3e}"
+                         + (f", {time_ms(call, 50, 5) * 1e3:.2f} us"
+                            if timed else "") + " |")
+                if not ok:
+                    print(line)
+                    raise AssertionError(f"{kname} {label} design at R={R}: "
+                                         f"error {err:.3e} above "
+                                         f"{TOL[kname]:g}")
+            _, p64 = abs_rel_err(plain.double(), ref64)
+            print(line + f" plain vs float64 {p64:.3e}; wide vs float64 no "
+                  f"worse than cluster: {e64['wide'] <= e64['cluster']}")
+
+
 def abs_rel_err(a, b) -> tuple[float, float]:
     """(max |a - b|, the same relative to max |b|)."""
     err = float((a - b).abs().max())
@@ -520,6 +588,7 @@ class Case(NamedTuple):
     nbytes: float                # each input read once, output written once
     flops: float
     ref64: Callable | None       # the plain chain in float64
+    inputs: tuple = ()           # the analysis kernels' tensors
 
 
 def bank_inputs(R: int, H: int, hop: int, dev, rng):
@@ -579,14 +648,16 @@ def kernel_cases(R: int, cfg, dev, rng, n: int | None = None):
             lambda: analysis.power_spectrum_fused(frames, n),
             lambda: analysis.power_spectrum_plain(frames, n),
             lambda: torch.matmul(frames, cs), power_fb[1], power_fb[0],
-            lambda: analysis.power_spectrum_plain(frames.double(), n)),
+            lambda: analysis.power_spectrum_plain(frames.double(), n),
+            (frames,)),
         "envelope_cepstrum": Case(
             lambda: analysis.envelope_cepstrum_fused(P, lift, n, db),
             lambda: analysis.envelope_cepstrum_plain(P, lift, n, db),
             lambda: torch.matmul(torch.matmul(torch.matmul(P, C), D), C),
             cep_fb[1], cep_fb[0],
             lambda: analysis.envelope_cepstrum_plain(P.double(),
-                                                     lift.double(), n, db)),
+                                                     lift.double(), n, db),
+            (P, lift)),
     }
 
 
@@ -872,6 +943,18 @@ def run_stream(params, cfg, x, device, vocoder_mode=None):
 
 
 def launch_counts() -> dict:
+    """Launches per kernel of the port: either design of the power
+    spectrum and of the envelope cepstrum counts as its kernel
+    (``CudaKernel.computes``); ``design_counts`` tells them apart."""
+    from realtime_yukarin_tpu_torch.ops import cuda
+    counts: dict[str, int] = {}
+    for k in cuda.KERNELS:
+        counts[k.computes] = counts.get(k.computes, 0) + k.launches
+    return counts
+
+
+def design_counts() -> dict:
+    """Launches per CUDA kernel, each design of kernels 2 and 3 apart."""
     from realtime_yukarin_tpu_torch.ops import cuda
     return {k.name: k.launches for k in cuda.KERNELS}
 
@@ -1048,12 +1131,13 @@ def record_shapes() -> tuple[dict, Callable[[], None]]:
     """Wrap each kernel's count to record the shape it was given
     (``launch_shape``; the launch still counts once): an eager launch, or
     a launch a captured graph replays (``ops/cuda.py``); returns ({name:
-    [shape, ...]}, undo)."""
+    [shape, ...]}, undo), by the kernel each launch computes (either design
+    of kernels 2 and 3 under its kernel's name)."""
     from realtime_yukarin_tpu_torch.ops import cuda
-    shapes = {k.name: [] for k in cuda.KERNELS}
+    shapes = {k.computes: [] for k in cuda.KERNELS}
     for k in cuda.KERNELS:
         def count(args, _k=k):
-            shapes[_k.name].append(launch_shape(_k.name, args))
+            shapes[_k.computes].append(launch_shape(_k.computes, args))
             type(_k).count(_k, args)
         k.count = count
 
@@ -1139,7 +1223,7 @@ def batched_phase(cfg) -> dict:
     paused = out[PAUSE_STEPS[0]: PAUSE_STEPS[1] + 1, PAUSED_LANE]
     R = 20 * N
     print(f"[batched] {N} streams x {steps} steps (float32): launches "
-          f"{launches}; rows per launch "
+          f"{launches} (by design {design_counts()}); rows per launch "
           f"{ {k: sorted(set(v)) for k, v in rows.items()} }")
     print(f"[batched] lane {PAUSED_LANE} paused for steps {PAUSE_STEPS}: "
           f"carry bit-equal={same} ({len(before)} leaves), output max "
@@ -1225,13 +1309,14 @@ def profile_stats(fn, n: int) -> dict:
         by_name.setdefault(e.name, []).append(e.device_time)
     busy = sum(e.device_time for e in events) / 1e3
     port = {}
-    for k in cuda.KERNELS:
+    for kname in dict.fromkeys(k.computes for k in cuda.KERNELS):
         # csrc/<name>.cu's kernel is <name>_kernel, demangled as
-        # "<name>_kernel<" or "<name>_kernel("
+        # "<name>_kernel<" or "<name>_kernel(" (csrc/<name>_wide.cu's is
+        # wide::<name>_kernel: either design)
         t = [us for name, ts in by_name.items()
-             if any(f"{k.name}_kernel{c}" in name for c in "<(")
+             if any(f"{kname}_kernel{c}" in name for c in "<(")
              for us in ts]
-        port[k.name] = (float(np.mean(t)) if t else None, len(t) / n)
+        port[kname] = (float(np.mean(t)) if t else None, len(t) / n)
     host_launches = sum(1 for e in prof.events()
                         if e.device_type == torch.autograd.DeviceType.CPU
                         and LAUNCH_API.match(e.name))
@@ -3035,7 +3120,7 @@ def count_step_both(params, cfg, N: int, mode: str, label: str,
                                       [model_stage_flops(s)
                                        for s in servers])
     srv = servers[0]
-    replay = sorted((k.name, launch_shape(k.name, a))
+    replay = sorted((k.computes, launch_shape(k.computes, a))
                     for k, a in srv.program._capture.launches)
     counted = sorted((k.name, k.shape) for k in c_dev.kernels)
     parted = {op: (c_dev.op_bytes[op], c_cpu.op_bytes[op])
@@ -3279,7 +3364,7 @@ def main() -> int:
     record = {}
     offline_rec = {}
     # the shapes held against the plain versions (launch_shape's)
-    checked = {k.name: set() for k in cuda.KERNELS}
+    checked = {k.computes: set() for k in cuda.KERNELS}
     n_fft, H_d, hop_d = cfg.dsp.fft_size, cfg.dsp.num_harmonics, cfg.dsp.hop
     K_d = n_fft // 2 + 1
     for R in KERNEL_ROWS:
@@ -3312,6 +3397,12 @@ def main() -> int:
         checked["harmonic_bank_bwd"].add((R, H, hop, True))
     print(f"[kernel] the paths' other rows (path_rows), checked: analysis "
           f"{analysis_rows}, bank {bank_rows}")
+    for R in SERVE_CELL_ROWS:
+        cases = kernel_cases(R, cfg, dev, rng)
+        for kname in ANALYSIS_KERNELS:
+            kernel_phase(kname, R, n_fft, cases[kname])
+            checked[kname].add((R, K_d))
+    designs_phase(cfg, dev, rng)
     kname = "harmonic_bank_bwd"
     names = ("d_aL", "d_aR", "d_phi", "d_frac")
     for R in (TRAIN_FRAMES, QUALITY_ROWS, TRAIN_BATCH * TRAIN_FRAMES,
@@ -3541,10 +3632,11 @@ def main() -> int:
              *corpus_launches.values(), *multihost_launches.values(),
              captured_train["launches"], cost_launches]
     print(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": REPLACES[k.name],
-         "launches": sum(p[k.name] for p in paths),
-         **record[k.name]} for k in cuda.KERNELS]}))
+        {"name": name, "route": "cuda",
+         "source": [k.source for k in cuda.KERNELS if k.computes == name],
+         "replaces": REPLACES[name],
+         "launches": sum(p[name] for p in paths),
+         **record[name]} for name in REPLACES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name, "count": count}}))
     return 0

@@ -40,9 +40,11 @@
 // thread 4 or 8 rows of it; the 8 warps split the rows and the depth of each
 // chunk, their partial sums added in a fixed order through shared memory.
 // A row of the input is read four depths at a time as a broadcast float4.
-// Float32 FMA stays at batch widths too: 3xTF32 tensor-core products
-// measured slower there (PERF.md §6).  A cluster whose CTAs cannot be
-// co-resident fails at launch and the wrapper raises.
+// This design takes R below ops/analysis.py `CEPSTRUM_WIDE_ROWS`; from
+// there the batch-width design of csrc/envelope_cepstrum_wide.cu does (a
+// folded, register-blocked float32 GEMM, the chain of 32 rows in one CTA).
+// 3xTF32 tensor-core products measured slower at batch widths.  A cluster
+// whose CTAs cannot be co-resident fails at launch and the wrapper raises.
 
 #include <cfloat>
 #include <cooperative_groups.h>

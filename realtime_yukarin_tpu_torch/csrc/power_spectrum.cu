@@ -35,10 +35,12 @@
 // the owner's mbarrier; the owner adds the 8 in rank order, squares and
 // writes only P.  Split cluster barriers (arrive early, wait late) keep
 // every CTA's barriers and shared memory alive while the others use them.
-// Numerics: float32, as the plain version.  The same kernel serves batch
-// widths with more row tiles: a 3xTF32 tensor-core variant measured slower
-// than the plain version's device time at R = 1280 (PERF.md §6), and no
-// path of the port sends more than 100 rows here yet.
+// Numerics: float32, as the plain version.  This design takes R below
+// ops/analysis.py `POWER_WIDE_ROWS` (the single stream's 4 and 20 rows,
+// make_batch's 100, the quality recipe's 120 and 160); from there the
+// batch-width design of csrc/power_spectrum_wide.cu does (two folds and a
+// register-blocked GEMM, no depth split).  A 3xTF32 tensor-core variant
+// measured slower than the plain version's device time at R = 1280.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>

@@ -76,11 +76,16 @@ class CudaKernel:
     time the kernel runs: at an eager :meth:`launch`, or at each replay of
     a graph that captured the launch.  Nothing else changes it except
     :func:`reset_counts`, so a run can show it went through the kernel.
+    ``computes`` names the kernel of the port whose work it does: its own
+    name, or, for a second design of a kernel (the batch-width designs of
+    the power spectrum and the envelope cepstrum), that kernel's.
     """
 
-    def __init__(self, name: str, argtypes: tuple):
+    def __init__(self, name: str, argtypes: tuple,
+                 computes: str | None = None):
         self.name = name
         self.argtypes = argtypes
+        self.computes = computes or name
         self.launches = 0
         self._fn = None
         self._err = None
@@ -208,8 +213,18 @@ ENVELOPE_CEPSTRUM = CudaKernel(
 HARMONIC_BANK_BWD = CudaKernel(
     "harmonic_bank_bwd", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _P))
+# the batch-width designs of kernels 2 and 3 (ops/analysis.py picks one
+# design or the other by the row count); their ints after (R, n, K) and
+# (R, K): the layout, ops/analysis.py:WidePowerPlan / WideCepstrumPlan
+POWER_SPECTRUM_WIDE = CudaKernel(
+    "power_spectrum_wide", (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    computes="power_spectrum")
+ENVELOPE_CEPSTRUM_WIDE = CudaKernel(
+    "envelope_cepstrum_wide", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                               _P),
+    computes="envelope_cepstrum")
 KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM,
-           HARMONIC_BANK_BWD)
+           HARMONIC_BANK_BWD, POWER_SPECTRUM_WIDE, ENVELOPE_CEPSTRUM_WIDE)
 # the stage index, utils/profiling.py:STAGES
 STAGE_MARK = CudaKernel("stage_mark", (_I, _P))
 

@@ -89,10 +89,12 @@ class CapturedProgram:
 
     @property
     def kernel_launches(self) -> dict[str, int]:
-        """{kernel name: launches per replay} of the port's kernels."""
+        """{kernel name: launches per replay} of the port's kernels, by
+        the kernel each launch computes (``CudaKernel.computes``: either
+        design of the power spectrum counts as ``power_spectrum``)."""
         counts: dict[str, int] = {}
         for kernel, _ in (self._capture.launches if self._capture else ()):
-            counts[kernel.name] = counts.get(kernel.name, 0) + 1
+            counts[kernel.computes] = counts.get(kernel.computes, 0) + 1
         return counts
 
     def _grad_mode(self):

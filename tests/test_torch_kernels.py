@@ -270,25 +270,201 @@ def _covered_once(spans, total):
     return bool((count == 1).all())
 
 
+def _folded_once(depth_spans, pairs, total):
+    """The folded depth rows' spans cover the folded index range once, and
+    the samples (or bins) the rows stand for, ``pairs(u)``, cover
+    [0, total) once."""
+    count = np.zeros(total, int)
+    for a, b in depth_spans:
+        for u in range(a, b):
+            for t in pairs(u):
+                count[t] += 1
+    return bool((count == 1).all())
+
+
+WIDE_ROWS = (analysis.POWER_WIDE_ROWS - 1, analysis.POWER_WIDE_ROWS,
+             analysis.CEPSTRUM_WIDE_ROWS - 1, analysis.CEPSTRUM_WIDE_ROWS,
+             2048, 2049, 10239, 10240)
+
+
 @pytest.mark.parametrize("K", [512, 513])
-@pytest.mark.parametrize("R", [1, 20, 21, 100, 800, 1280, 1281])
+@pytest.mark.parametrize("R", [1, 20, 21, 100, 800, 1280, 1281] +
+                         list(WIDE_ROWS))
 def test_kernel_plans_cover_every_row_bin_and_depth_once(R, K):
     """Both kernels' grids, as their plans lay them out, take every row,
-    every bin (column) and every depth sample exactly once."""
+    every bin (column) and every depth sample exactly once: the cluster
+    designs directly; the wide designs through their folds (a folded depth
+    row stands for samples t and n - t, split by parity of t for the power
+    spectrum's base bins k, each of which also gives bin n/2 - k; for the
+    cepstrum a and n/2 - a)."""
     n = 2 * (K - 1)
+    half = n // 2
     power = analysis.power_plan(R, n)
-    assert power.row_tile <= analysis.CLUSTER_ROWS
     spans = power.spans(R, n)
     assert _covered_once(spans["rows"], R)
-    assert _covered_once(spans["bins"], K)
-    assert _covered_once(spans["depth"], n)
+    if isinstance(power, analysis.WidePowerPlan):
+        assert R >= analysis.POWER_WIDE_ROWS
+        assert _covered_once(spans["bins"], half // 2 + 1)
+        assert _folded_once(spans["bins"], lambda k: {k, half - k}, K)
+
+        def samples(u):
+            ts = [t for t in (2 * u, 2 * u + 1) if t <= half]
+            return [s for t in ts for s in ({t, n - t} if 0 < t < half
+                                            else {t})]
+        assert _folded_once(spans["depth"], samples, n)
+    else:
+        assert R < analysis.POWER_WIDE_ROWS
+        assert power.row_tile <= analysis.CLUSTER_ROWS
+        assert _covered_once(spans["bins"], K)
+        assert _covered_once(spans["depth"], n)
     cep = analysis.cepstrum_plan(R, K)
-    assert analysis._cepstrum_smem(cep.rows, cep.width) <= \
-        analysis.SMEM_BYTES
     spans = cep.spans(R, K)
     assert _covered_once(spans["rows"], R)
     assert _covered_once(spans["columns"], K)
-    assert _covered_once(spans["depth"], K)
+    if isinstance(cep, analysis.WideCepstrumPlan):
+        assert R >= analysis.CEPSTRUM_WIDE_ROWS
+        assert analysis._wide_cepstrum_smem(K, cep.columns) <= \
+            analysis.SMEM_BYTES
+        assert 2 * cep.columns >= K
+        assert _folded_once(spans["depth"],
+                            lambda a: {a, half - a} if a <= half // 2
+                            else set(), K)
+    else:
+        assert R < analysis.CEPSTRUM_WIDE_ROWS
+        assert analysis._cepstrum_smem(cep.rows, cep.width) <= \
+            analysis.SMEM_BYTES
+        assert _covered_once(spans["depth"], K)
+
+
+@pytest.mark.parametrize("n", [1022, 1024])
+def test_plans_pick_the_cluster_design_below_the_crossover(n):
+    """The design is the row count's alone: below ``POWER_WIDE_ROWS`` /
+    ``CEPSTRUM_WIDE_ROWS`` rows the cluster design with the plan it always
+    had (the single stream's R = 4 and 20 among them), from there the wide
+    one; each cost formula counts the design its row count takes."""
+    K = n // 2 + 1
+    for R in (1, 4, 20, 100, analysis.POWER_WIDE_ROWS - 1):
+        assert analysis.power_plan(R, n) == analysis.cluster_power_plan(R, n)
+        assert isinstance(analysis.power_plan(R, n), analysis.PowerPlan)
+        assert analysis.power_spectrum_cost(R, n)[0] == 4 * R * n * K
+    for R in (analysis.POWER_WIDE_ROWS, 2048, 10240):
+        assert analysis.power_plan(R, n) == analysis.WIDE_POWER_PLAN
+        assert analysis.power_spectrum_cost(R, n)[0] == \
+            2 * R * n * (n // 4 + 1)
+    for R in (1, 4, 20, 100, analysis.CEPSTRUM_WIDE_ROWS - 1):
+        assert analysis.cepstrum_plan(R, K) == \
+            analysis.cluster_cepstrum_plan(R, K)
+        assert isinstance(analysis.cepstrum_plan(R, K), analysis.CepstrumPlan)
+        assert analysis.envelope_cepstrum_cost(R, K)[0] == 6 * R * K * K
+    for R in (analysis.CEPSTRUM_WIDE_ROWS, 2048, 10240):
+        wide = analysis.cepstrum_plan(R, K)
+        assert wide == analysis.wide_cepstrum_plan(K)
+        assert isinstance(wide, analysis.WideCepstrumPlan)
+        flops = analysis.envelope_cepstrum_cost(R, K)[0]
+        assert 3 * R * K * K <= flops < 3 * R * K * (K + 4)
+
+
+def _wide_power_from_basis(frames, n):
+    """The wide power-spectrum kernel's arithmetic in float64: fold the
+    frames (t with n - t), split by parity of t, multiply by the four
+    parts of each base-bin tile, and form bins k and n/2 - k."""
+    basis = analysis.wide_power_basis(n)
+    tiles, depth, _ = basis.shape
+    B = analysis.WIDE_BINS
+    half = n // 2
+    x = np.asarray(frames, np.float64)
+    e = np.zeros((len(x), 2 * depth))
+    o = np.zeros((len(x), 2 * depth))
+    t = np.arange(1, half)
+    e[:, : half + 1] = x[:, : half + 1]
+    e[:, t] += x[:, n - t]
+    o[:, t] = x[:, t] - x[:, n - t]
+    parts = (e[:, 0::2], e[:, 1::2], o[:, 0::2], o[:, 1::2])
+    sums = [np.concatenate([p @ basis[i, :, q * B:(q + 1) * B]
+                            for i in range(tiles)], 1)
+            for q, p in enumerate(parts)]
+    ae, ao, be, bo = (v[:, : half // 2 + 1] for v in sums)
+    P = np.zeros((len(x), half + 1))
+    P[:, half - np.arange(half // 2 + 1)] = (ae - ao) ** 2 + (be - bo) ** 2
+    P[:, : half // 2 + 1] = (ae + ao) ** 2 + (be + bo) ** 2
+    return P
+
+
+@pytest.mark.parametrize("n", [1022, 1024])
+def test_wide_power_basis_layout_gives_the_power_spectrum(n):
+    """The wide kernel's one constant -- the windowed rfft bases folded
+    over the samples and over the bins, [tiles of 64 base bins][depth u]
+    [w cos at 2u | w cos at 2u + 1 | w sin at 2u | w sin at 2u + 1] --
+    used the kernel's way in float64: the plain version in float64 to
+    1e-12 of the peak, JAX's XLA reference and the interpret-mode Pallas
+    kernel to 1e-4."""
+    basis = analysis.wide_power_basis(n)
+    half = n // 2
+    assert basis.shape == (-(-(half // 2 + 1) // analysis.WIDE_BINS),
+                           -(-(half // 2 + 1) // analysis.WIDE_CHUNK)
+                           * analysis.WIDE_CHUNK, 4 * analysis.WIDE_BINS)
+    assert not basis[:, half // 2 + 1:].any()
+    frames, ref_x, ref_k = _power_inputs(n)
+    out = _wide_power_from_basis(frames, n)
+    plain = analysis.power_spectrum_plain(
+        torch.as_tensor(frames, dtype=torch.float64), n).numpy()
+    assert rel_to_peak(out, plain) < 1e-12
+    assert rel_to_peak(out, ref_x) < 1e-4
+    assert rel_to_peak(out, ref_k) < 1e-4
+
+
+def _wide_cepstrum_from_basis(P, lift, n, db):
+    """The wide envelope-cepstrum kernel's arithmetic in float64: each of
+    the three products folds its input (a with n/2 - a) into S, feeding
+    the even output columns, and D, feeding the odd ones."""
+    K = n // 2 + 1
+    half = K - 1
+    columns = analysis.wide_cepstrum_plan(K).columns
+    F = analysis.wide_cepstrum_basis(n, columns)
+    a = np.arange(half // 2 + 1)
+    pair = a < half - a
+
+    def product(Y):
+        S = np.zeros((len(Y), len(F)))
+        D = np.zeros((len(Y), len(F)))
+        S[:, a] = Y[:, a] + np.where(pair, Y[:, half - a], 0.0)
+        D[:, a] = np.where(pair, Y[:, a] - Y[:, half - a], 0.0)
+        out = np.zeros((len(Y), K))
+        out[:, 0::2] = (S @ F[:, :columns])[:, : (K + 1) // 2]
+        out[:, 1::2] = (D @ F[:, columns:])[:, : K // 2]
+        return out
+
+    P, lift = np.asarray(P, np.float64), np.asarray(lift, np.float64)
+    Ps = product(product(P) / n * lift)
+    floor = np.maximum(Ps.max(1, keepdims=True) * 10.0 ** (db / 10.0),
+                       prim.POWER_FLOOR)
+    return product(np.log(np.maximum(Ps, floor))) / n * lift
+
+
+@pytest.mark.parametrize("n", [1022, 1024])
+def test_wide_cepstrum_basis_layout_gives_the_chain(n):
+    """The wide kernel's one constant -- M = cepstrum_inverse_basis(n)
+    folded about a = n/4, the even columns then the odd ones per folded
+    depth row -- used the kernel's way in float64: the plain chain in
+    float64 to 1e-12 of the peak, JAX's XLA reference and the
+    interpret-mode Pallas kernel to 1e-4."""
+    K = n // 2 + 1
+    columns = analysis.wide_cepstrum_plan(K).columns
+    F = analysis.wide_cepstrum_basis(n, columns)
+    depth = n // 4 + 1
+    assert F.shape == (-(-depth // analysis.WIDE_CHUNK)
+                       * analysis.WIDE_CHUNK, 2 * columns)
+    assert not F[depth:].any()
+    M = dft.cepstrum_inverse_basis(n)
+    np.testing.assert_array_equal(F[:depth, : (K + 1) // 2], M[:depth, 0::2])
+    P, lift, db, ref_x, ref_k = _cepstrum_inputs(n)
+    out = _wide_cepstrum_from_basis(P, lift, n, db)
+    plain = analysis.envelope_cepstrum_plain(
+        torch.as_tensor(P, dtype=torch.float64),
+        torch.as_tensor(lift, dtype=torch.float64), n, db).numpy()
+    assert rel_to_peak(out, plain) < 1e-12
+    assert rel_to_peak(out, ref_x) < 1e-4
+    assert rel_to_peak(out, ref_k) < 1e-4
 
 
 def _constexprs(name):
@@ -312,7 +488,7 @@ def test_power_plan_and_basis_are_in_the_kernels_layout(n):
     tiles = -(-(n // 2 + 1) // c["TILE_BINS"])
     assert analysis.power_basis(n).shape == (tiles, c["DEPTH"], c["LD"])
     for R in (1, 20, 21, 100, 800, 1280, 1281):
-        plan = analysis.power_plan(R, n)
+        plan = analysis.cluster_power_plan(R, n)
         assert 1 <= plan.row_tile <= c["MAX_ROW_TILE"]
         assert plan.depth_slice * c["SLICES"] == c["DEPTH"]
 
@@ -328,13 +504,36 @@ def test_cepstrum_plans_are_among_the_kernels_built(K):
     assert built == set(analysis.ROW_GROUPS.values())
     assert _constexprs("envelope_cepstrum")["CL"] == analysis.CLUSTER
     for R in (1, 20, 21, 100, 800, 1280, 1281):
-        plan = analysis.cepstrum_plan(R, K)
+        plan = analysis.cluster_cepstrum_plan(R, K)
         assert (plan.rows_per_thread, plan.depth_warps) in built
         assert plan.rows == (8 // plan.depth_warps) * plan.rows_per_thread
         W = plan.width
         assert W % 8 == 0 and 64 <= W <= 128 and analysis.CLUSTER * W >= K
     sl = dft.sliced_cepstrum_basis(2 * (K - 1), W, analysis.CLUSTER)
     assert sl.shape == (analysis.CLUSTER, analysis.CLUSTER * W, W)
+
+
+@pytest.mark.parametrize("n", [1022, 1024])
+def test_wide_plans_and_bases_are_in_the_kernels_layout(n):
+    """What the wrappers hand csrc/*_wide.cu -- rows and base bins per
+    CTA, folded depth rows per chunk, the cepstrum's columns per warp of a
+    group and the group sizes built -- is what the kernels were built for,
+    and the bases have the layout the kernels read."""
+    c = _constexprs("power_spectrum_wide")
+    plan = analysis.WIDE_POWER_PLAN
+    assert (c["BM"], c["BB"], c["DK"]) == tuple(plan)
+    assert analysis.wide_power_basis(n).shape[2] == 4 * c["BB"]
+    c = _constexprs("envelope_cepstrum_wide")
+    K = n // 2 + 1
+    wide = analysis.wide_cepstrum_plan(K)
+    assert (c["BM"], c["DK"]) == (wide.rows, wide.chunk)
+    assert c["CPW"] == analysis.WARP_COLUMNS
+    src = (cuda.CSRC_DIR / "envelope_cepstrum_wide.cu").read_text()
+    built = {int(w) for w in re.findall(r"columns == (\d+) \* CPW", src)}
+    assert built == set(analysis.WIDE_CEP_WARPS)
+    assert wide.columns // analysis.WARP_COLUMNS in built
+    assert analysis.wide_cepstrum_basis(n, wide.columns).shape[1] == \
+        2 * wide.columns
 
 
 def test_plans_refuse_shapes_the_kernels_do_not_take():
