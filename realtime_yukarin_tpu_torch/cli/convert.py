@@ -5,8 +5,8 @@ Usage:
     python -m realtime_yukarin_tpu_torch.cli.convert \\
         --input_path in.wav --output_path out.wav \\
         [--config_path config.yaml] [--params_path params.npz] \\
-        [--vocoder dsp|ddsp|wave] [--neural_vocoder] [--no_sr] [--seed N] \\
-        [--device cuda]
+        [--vocoder dsp|ddsp|wave|hifigan] [--neural_vocoder] [--no_sr] \\
+        [--seed N] [--device cuda]
 
 Reads the input at ``cfg.dsp.in_rate``, converts it through
 ``pipeline.offline_convert_io`` (which resamples to and from the internal
@@ -23,7 +23,7 @@ import argparse
 
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config
+from realtime_yukarin_tpu_torch.config import VOCODER_MODES, Config
 from realtime_yukarin_tpu_torch.models.voice_changer import (init_params,
                                                              load_all_params)
 from realtime_yukarin_tpu_torch.pipeline import offline_convert_io
@@ -41,7 +41,7 @@ def main(argv: list[str] | None = None) -> None:
                    help="full parameter tree (.npz or .msgpack)")
     p.add_argument("--neural_vocoder", action="store_true",
                    help="legacy spelling of --vocoder ddsp")
-    p.add_argument("--vocoder", choices=["dsp", "ddsp", "wave"],
+    p.add_argument("--vocoder", choices=list(VOCODER_MODES),
                    default=None, help="synthesis stage (default: config)")
     p.add_argument("--no_sr", action="store_true")
     p.add_argument("--seed", type=int, default=0)
@@ -51,11 +51,11 @@ def main(argv: list[str] | None = None) -> None:
 
     device = resolve_device(args.device)
     cfg = Config.from_yaml(args.config_path) if args.config_path else Config()
-    params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
-                         device)
-    params = load_all_params(params, cfg, params_path=args.params_path)
     mode = (args.vocoder or ("ddsp" if args.neural_vocoder
                              else cfg.resolved_vocoder_mode))
+    params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                         device, vocoder_mode=mode)
+    params = load_all_params(params, cfg, params_path=args.params_path)
 
     x, _ = read_wav(args.input_path, target_rate=cfg.dsp.in_rate)
     y = offline_convert_io(params, x, noise_key_from_seed(args.seed), cfg,

@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config
+from realtime_yukarin_tpu_torch.config import VOCODER_MODES, Config
 from realtime_yukarin_tpu_torch.models.voice_changer import (init_params,
                                                              load_all_params)
 from realtime_yukarin_tpu_torch.parallel.multihost import (init_multihost,
@@ -69,7 +69,7 @@ def main(argv: list[str] | None = None) -> None:
                    help=">0: sleep to simulate a live mic at this speed")
     p.add_argument("--neural_vocoder", action="store_true",
                    help="legacy spelling of --vocoder ddsp")
-    p.add_argument("--vocoder", choices=["dsp", "ddsp", "wave"],
+    p.add_argument("--vocoder", choices=list(VOCODER_MODES),
                    default=None, help="synthesis stage (default: config)")
     p.add_argument("--no_sr", action="store_true")
     p.add_argument("--seed", type=int, default=0)
@@ -126,12 +126,12 @@ def main(argv: list[str] | None = None) -> None:
     rank, world = init_multihost(backend=args.backend, device=device)
     device = rank_device(device)
     cfg = Config.from_yaml(args.config_path) if args.config_path else Config()
-    params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
-                         device)
-    params = load_all_params(params, cfg, params_path=args.params_path)
     args.vocoder_mode = (args.vocoder
                          or ("ddsp" if args.neural_vocoder
                              else cfg.resolved_vocoder_mode))
+    params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
+                         device, vocoder_mode=args.vocoder_mode)
+    params = load_all_params(params, cfg, params_path=args.params_path)
 
     from realtime_yukarin_tpu_torch.utils.profiling import trace
     if args.socket is not None:

@@ -6,7 +6,9 @@ port imports nothing of the JAX package.  Every quantity that shapes a
 tensor is static, derived from the configuration: sample rates, the frame
 hop, chunk sizes and the model receptive fields that set the streaming
 halos.  ``tests/test_torch_config.py`` holds every field and derived
-property equal to the JAX ``Config``.
+property equal to the JAX ``Config``, apart from what the port alone has:
+the fourth vocoder mode, ``"hifigan"`` (:class:`VocoderHiFiGANConfig`, the
+``vocoder_hifigan`` section, and ``vocoder_hifigan_params_path``).
 """
 
 from __future__ import annotations
@@ -31,16 +33,31 @@ except Exception:  # pragma: no cover
 HARMONIC_NYQUIST_FRACTION = 0.95
 
 
+# the synthesis stages; "hifigan" is the port's alone
+VOCODER_MODES = ("dsp", "ddsp", "wave", "hifigan")
+
+
+def _check_mode(mode: str) -> str:
+    if mode not in VOCODER_MODES:
+        raise ValueError(f"vocoder_mode must be {'|'.join(VOCODER_MODES)}, "
+                         f"got {mode!r}")
+    return mode
+
+
 def resolve_vocoder_mode(use_neural_vocoder: bool,
                          vocoder_mode: str | None) -> str:
     """Shared mode resolution for APIs that kept the legacy boolean:
     explicit ``vocoder_mode`` wins; else the boolean selects ddsp/dsp."""
     if vocoder_mode is not None:
-        if vocoder_mode not in ("dsp", "ddsp", "wave"):
-            raise ValueError(f"vocoder_mode must be dsp|ddsp|wave, "
-                             f"got {vocoder_mode!r}")
-        return vocoder_mode
+        return _check_mode(vocoder_mode)
     return "ddsp" if use_neural_vocoder else "dsp"
+
+
+def runs_sr(use_sr: bool, vocoder_mode: str) -> bool:
+    """Whether stage 2 (envelope super-resolution) runs: it refines the
+    spectral envelope, which the HiFi-GAN generator does not read (it is
+    conditioned on mc, ap and F0), so never in the hifigan mode."""
+    return use_sr and vocoder_mode != "hifigan"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -409,6 +426,79 @@ class VocoderWaveConfig:
         return self.num_blocks * (self.kernel_size // 2)
 
 
+def _tuples(v):
+    """Lists (as JSON and YAML give them) as tuples, nested: a frozen
+    config stays hashable."""
+    return tuple(_tuples(x) for x in v) if isinstance(v, (list, tuple)) \
+        else v
+
+
+@dataclasses.dataclass(frozen=True)
+class VocoderHiFiGANConfig:
+    """The HiFi-GAN V1 generator (Kong, Kim & Bae 2020, arXiv:2010.05646;
+    ``config_v1.json`` of github.com/jik876/hifi-gan), the fourth vocoder
+    mode (``vocoder_mode: hifigan``; the port's alone): a 7-tap conv to
+    ``upsample_initial_channel`` channels, then per rate u a transposed
+    conv (stride u, kernel k_u, channels halved) and the mean of one
+    ResBlock1 per ``resblock_kernel_sizes`` entry (dilated convs), then a
+    7-tap conv to one channel and tanh.  The widths are V1's; the rates
+    multiply to this system's hop of 120 (V1's 8·8·2·2 is hop 256), with
+    V1's k_u = 2u.  ResBlock1 (V1's ``resblock: "1"``) is the only block
+    there is, so it is no field.  The streaming halo is the generator's
+    receptive field (:attr:`context_frames`), never a knob."""
+
+    upsample_initial_channel: int = 512
+    upsample_rates: tuple = (5, 4, 3, 2)
+    upsample_kernel_sizes: tuple = (10, 8, 6, 4)
+    resblock_kernel_sizes: tuple = (3, 7, 11)
+    resblock_dilation_sizes: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+
+    def __post_init__(self):
+        for f in ("upsample_rates", "upsample_kernel_sizes",
+                  "resblock_kernel_sizes", "resblock_dilation_sizes"):
+            object.__setattr__(self, f, _tuples(getattr(self, f)))
+        if not (1 <= len(self.upsample_rates) <= 4
+                and len(self.upsample_rates)
+                == len(self.upsample_kernel_sizes)):
+            raise ValueError("1 to 4 upsampling stages (the profiling "
+                             "markers name four), one kernel size each")
+        if len(self.resblock_kernel_sizes) != len(
+                self.resblock_dilation_sizes):
+            raise ValueError("one dilation list per resblock kernel size")
+        if any(k % 2 == 0 for k in self.resblock_kernel_sizes):
+            raise ValueError("resblock kernels must be odd (SAME padding)")
+        if self.upsample_initial_channel % 2 ** len(self.upsample_rates):
+            raise ValueError("upsample_initial_channel must halve at every "
+                             "stage")
+
+    @property
+    def samples_per_frame(self) -> int:
+        return math.prod(self.upsample_rates)
+
+    def channels(self, stage: int) -> int:
+        """Channels after upsampling stage ``stage`` (0-based)."""
+        return self.upsample_initial_channel // 2 ** (stage + 1)
+
+    @property
+    def context_frames(self) -> int:
+        """One-sided receptive field in frames: the input frames on either
+        side of a frame that its output samples read, through every layer
+        (conv_pre, each transposed conv and the widest resblock chain, and
+        conv_post), from the layer list alone."""
+        reach = max(sum((d + 1) * (k - 1) // 2 for d in ds)   # the MRF
+                    for k, ds in zip(self.resblock_kernel_sizes,
+                                     self.resblock_dilation_sizes))
+        lo, hi = 0, self.samples_per_frame - 1   # frame 0's output samples
+        lo, hi = lo - 3, hi + 3                             # conv_post
+        for u, k in reversed(list(zip(self.upsample_rates,
+                                      self.upsample_kernel_sizes))):
+            lo, hi = lo - reach, hi + reach
+            p = (k - u) // 2          # output o = i*u - p + j, 0 <= j < k
+            lo, hi = -(-(lo + p - k + 1) // u), (hi + p) // u
+        lo, hi = lo - 3, hi + 3                             # conv_pre
+        return max(-lo, hi)
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamingConfig:
     """Chunked-streaming geometry.
@@ -449,6 +539,8 @@ class Config:
         default_factory=VocoderNNConfig)
     vocoder_wave: VocoderWaveConfig = dataclasses.field(
         default_factory=VocoderWaveConfig)
+    vocoder_hifigan: VocoderHiFiGANConfig = dataclasses.field(
+        default_factory=VocoderHiFiGANConfig)
     streaming: StreamingConfig = dataclasses.field(
         default_factory=StreamingConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
@@ -464,12 +556,14 @@ class Config:
     stage2_params_path: str | None = None
     vocoder_params_path: str | None = None
     vocoder_wave_params_path: str | None = None
+    vocoder_hifigan_params_path: str | None = None
     input_statistics_path: str | None = None
     target_statistics_path: str | None = None
     # Synthesis stage selection (BASELINE config #4):
     #   "dsp"  — fixed harmonic+noise renderer (WORLD-synthesis role)
     #   "ddsp" — DDSP control net rescaling the DSP renderer's controls
     #   "wave" — learned iSTFT residual head (full waveform freedom)
+    #   "hifigan" — the HiFi-GAN V1 generator (the port's alone)
     # ``use_neural_vocoder: true`` is the legacy spelling of "ddsp".
     vocoder_mode: str = "dsp"
     use_neural_vocoder: bool = False
@@ -487,10 +581,7 @@ class Config:
     @property
     def resolved_vocoder_mode(self) -> str:
         """The effective synthesis mode, honoring the legacy boolean."""
-        mode = self.vocoder_mode
-        if mode not in ("dsp", "ddsp", "wave"):
-            raise ValueError(f"vocoder_mode must be dsp|ddsp|wave, "
-                             f"got {mode!r}")
+        mode = _check_mode(self.vocoder_mode)
         if self.use_neural_vocoder and mode == "dsp":
             return "ddsp"
         return mode
@@ -513,6 +604,7 @@ class Config:
             "super_resolution": SuperResolutionConfig,
             "vocoder_nn": VocoderNNConfig,
             "vocoder_wave": VocoderWaveConfig,
+            "vocoder_hifigan": VocoderHiFiGANConfig,
             "streaming": StreamingConfig,
             "serving": ServingConfig,
         }

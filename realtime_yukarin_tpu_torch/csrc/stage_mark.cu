@@ -31,6 +31,11 @@ __global__ void stage_begin_carry_out() {}
 __global__ void stage_begin_forward() {}
 __global__ void stage_begin_backward() {}
 __global__ void stage_begin_optimizer() {}
+__global__ void stage_begin_vocoder() {}
+__global__ void stage_begin_vocoder_s1() {}
+__global__ void stage_begin_vocoder_s2() {}
+__global__ void stage_begin_vocoder_s3() {}
+__global__ void stage_begin_vocoder_s4() {}
 __global__ void stage_end() {}
 }  // extern "C"
 
@@ -48,7 +53,12 @@ extern "C" int stage_mark_forward(int stage, void* stream) {
     case 8: stage_begin_forward<<<1, 1, 0, s>>>(); break;
     case 9: stage_begin_backward<<<1, 1, 0, s>>>(); break;
     case 10: stage_begin_optimizer<<<1, 1, 0, s>>>(); break;
-    case 11: stage_end<<<1, 1, 0, s>>>(); break;
+    case 11: stage_begin_vocoder<<<1, 1, 0, s>>>(); break;
+    case 12: stage_begin_vocoder_s1<<<1, 1, 0, s>>>(); break;
+    case 13: stage_begin_vocoder_s2<<<1, 1, 0, s>>>(); break;
+    case 14: stage_begin_vocoder_s3<<<1, 1, 0, s>>>(); break;
+    case 15: stage_begin_vocoder_s4<<<1, 1, 0, s>>>(); break;
+    case 16: stage_end<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -8,6 +8,14 @@ tensors).  Weights cross to and from the JAX package in its ``.npz`` layout
 — ``flatten_params``' slash-joined flax paths such as
 ``stage1/params/block_0/conv/kernel`` — through :func:`params_from_jax`
 (strict like ``unflatten_params``) and :func:`params_to_jax`.
+
+The ``"hifigan"`` vocoder mode adds ``"vocoder_hifigan"``: a
+:class:`~realtime_yukarin_tpu_torch.models.vocoder_hifigan.HiFiGANGenerator`,
+built (:func:`init_params`) and loaded (:func:`load_all_params`,
+``cfg.vocoder_hifigan_params_path``) in that mode only.  The JAX package
+has no such net, so it is not one of ``NETS`` and not in the ``.npz``
+layout both packages read; a full-tree load keeps the generator the
+params held.
 """
 
 from __future__ import annotations
@@ -27,11 +35,14 @@ from realtime_yukarin_tpu_torch.models.f0_stats import F0Statistics
 from realtime_yukarin_tpu_torch.models.initializers import init_module
 from realtime_yukarin_tpu_torch.models.super_resolution import (
     SRNet, refine_envelope)
+from realtime_yukarin_tpu_torch.models.vocoder_hifigan import \
+    HiFiGANGenerator
 from realtime_yukarin_tpu_torch.models.vocoder_nn import VocoderControlNet
 from realtime_yukarin_tpu_torch.models.vocoder_wave import WaveDecoderNet
 
 F0_STAT_NAMES = ("src_mean", "src_std", "tgt_mean", "tgt_std")
 NETS = ("stage1", "stage2", "vocoder", "vocoder_wave")
+HIFIGAN = "vocoder_hifigan"     # the port's own net, in the hifigan mode
 
 
 def stage_nets(cfg: Config) -> dict[str, nn.Module]:
@@ -43,13 +54,18 @@ def stage_nets(cfg: Config) -> dict[str, nn.Module]:
 
 
 def init_params(cfg: Config, generator: torch.Generator,
-                device="cpu") -> dict:
+                device="cpu", vocoder_mode: str | None = None) -> dict:
     """Fresh parameters with the JAX ``init_params`` shapes for all five
     subtrees: lecun-normal kernels, zero biases, zero heads (so both stages
     are the identity and both vocoders the DSP renderer until trained).
-    Inference copy on ``device`` (see :func:`params_to`)."""
+    In the ``"hifigan"`` mode (``vocoder_mode``, else the config's) the
+    HiFi-GAN generator too, drawn after the rest.  Inference copy on
+    ``device`` (see :func:`params_to`)."""
     nets = {k: init_module(net, generator)
             for k, net in stage_nets(cfg).items()}
+    if (vocoder_mode or cfg.resolved_vocoder_mode) == "hifigan":
+        nets[HIFIGAN] = init_module(
+            HiFiGANGenerator(cfg.vocoder_hifigan, cfg.dsp), generator)
     f0_stats = {"src_mean": math.log(160.0), "src_std": 0.25,
                 "tgt_mean": math.log(160.0), "tgt_std": 0.25}
     return params_to({**nets, "f0_stats": {
@@ -60,7 +76,7 @@ def init_params(cfg: Config, generator: torch.Generator,
 def _copy(params: dict, device, trainable: bool) -> dict:
     device = torch.device(device)
     nets = {}
-    for k in NETS:
+    for k in NETS + (HIFIGAN,):
         if k in params:
             net = copy.deepcopy(params[k]).to(device)
             nets[k] = (net.train() if trainable else net.eval()
@@ -330,18 +346,26 @@ def load_all_params(params: dict, cfg: Config,
 
     Order (later wins): cfg.params_path (full tree) -> ``params_path``
     (full tree) -> per-stage subtree files (stage1/stage2/vocoder/
-    vocoder_wave, each the ``flatten_params`` layout of that subtree) ->
-    the F0 statistics ``.npz`` files (``mean``, ``std``).  Every parameter
-    file is read strictly, as ``.npz`` or flax ``.msgpack``."""
+    vocoder_wave/vocoder_hifigan, each the ``flatten_params`` layout of
+    that subtree) -> the F0 statistics ``.npz`` files (``mean``, ``std``).
+    Every parameter file is read strictly, as ``.npz`` or flax
+    ``.msgpack``."""
     device = params["f0_stats"]["src_mean"].device
+    kept = {HIFIGAN: params[HIFIGAN]} if HIFIGAN in params else {}
     for full in (cfg.params_path, params_path):
         if full:
-            params = load_params_npz(full, cfg, device)
+            params = {**load_params_npz(full, cfg, device), **kept}
     params = params_to(params, device)
+    if cfg.vocoder_hifigan_params_path and HIFIGAN not in params:
+        raise ValueError("vocoder_hifigan_params_path names a HiFi-GAN "
+                         "generator, and the params hold none: build them "
+                         "in the hifigan mode (init_params(..., "
+                         "vocoder_mode='hifigan'))")
     for key, path in (("stage1", cfg.stage1_params_path),
                       ("stage2", cfg.stage2_params_path),
                       ("vocoder", cfg.vocoder_params_path),
-                      ("vocoder_wave", cfg.vocoder_wave_params_path)):
+                      ("vocoder_wave", cfg.vocoder_wave_params_path),
+                      (HIFIGAN, cfg.vocoder_hifigan_params_path)):
         if path:
             load_flax(params[key], _read_params(path))
     for path, mean_key, std_key in (

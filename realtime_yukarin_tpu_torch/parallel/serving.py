@@ -44,7 +44,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
+from realtime_yukarin_tpu_torch.config import (Config, resolve_vocoder_mode,
+                                               runs_sr)
 from realtime_yukarin_tpu_torch.models.acoustic import convert_mc_streamed
 from realtime_yukarin_tpu_torch.models.super_resolution import \
     refine_envelope
@@ -130,8 +131,12 @@ class BatchedServer:
         mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
         self.device = resolve_device(device)
         self._cfg = cfg
-        self._mode, self._use_sr = mode, use_sr
+        self._mode, self._use_sr = mode, runs_sr(use_sr, mode)
         self.mesh = mesh if mesh is not None else make_mesh()
+        if mode == "hifigan" and self.mesh.model_parallel > 1:
+            raise ValueError("the hifigan mode serves at model_parallel 1: "
+                             "the generator's layers do not split over a "
+                             "model group")
         dp = self.mesh.data_size
         n = -(-(num_streams or cfg.serving.num_streams) // dp) * dp
         self.num_streams = n
@@ -318,9 +323,12 @@ def model_stage_flops(server: BatchedServer) -> dict[str, int]:
     each counted standalone (``utils/cost.py``) at the exact shapes the
     step gives it: {"stage1": the conv stack streamed over the Fc fresh
     frames with its per-layer caches, "stage2": super-resolution over the
-    stage-1 cache frames plus Fc (0 without SR), "vocoder": the server's
+    stage-1 cache frames plus Fc (0 without SR and in the hifigan mode,
+    which runs none), "vocoder": the server's
     DDSP control net or wave decoder over Fc + 1 + 2 x its context frames
-    (0 in dsp mode)}.  Their sum is the learned share of
+    (0 in the dsp and hifigan modes)}, and in the hifigan mode
+    "vocoder_hifigan": the HiFi-GAN generator over the same rows.  Their
+    sum is the learned share of
     :meth:`BatchedServer.step_cost_analysis`; the rest is structural: the
     analysis bases and kernels, selection one-hots, prefix sums, the
     renderer.  The counterpart of ``bench.py``'s ``_model_stage_flops``;
@@ -350,12 +358,16 @@ def model_stage_flops(server: BatchedServer) -> dict[str, int]:
         zeros(geo.stage1_cache_frames + Fc, dsp.spec_bins),
         cfg.super_resolution, dsp, dtype) if server._use_sr else 0
     ctx = {"ddsp": cfg.vocoder_nn.context_frames,
-           "wave": cfg.vocoder_wave.context_frames}.get(server._mode)
+           "wave": cfg.vocoder_wave.context_frames,
+           "hifigan": cfg.vocoder_hifigan.context_frames}.get(server._mode)
     if ctx is None:
         out["vocoder"] = 0
         return out
     x = zeros(Fc + 1 + 2 * ctx, vocoder_input_dim(dsp))
-    if server._mode == "ddsp":
+    if server._mode == "hifigan":
+        out["vocoder"] = 0
+        out["vocoder_hifigan"] = flops(params["vocoder_hifigan"], x, dtype)
+    elif server._mode == "ddsp":
         out["vocoder"] = flops(params["vocoder"], x, dtype)
     else:
         L = Fc + 1

@@ -33,14 +33,17 @@ from typing import NamedTuple
 
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
+from realtime_yukarin_tpu_torch.config import (Config, resolve_vocoder_mode,
+                                               runs_sr)
 from realtime_yukarin_tpu_torch.dsp.resample import resample_signal
 from realtime_yukarin_tpu_torch.dsp.synthesis import synthesize
 from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature, analyze
+from realtime_yukarin_tpu_torch.models.vocoder_hifigan import hifigan_vocode
 from realtime_yukarin_tpu_torch.models.vocoder_nn import neural_vocode
 from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
-from realtime_yukarin_tpu_torch.models.voice_changer import (compute_dtype,
-                                                             convert_features)
+from realtime_yukarin_tpu_torch.models.acoustic import convert_mc
+from realtime_yukarin_tpu_torch.models.voice_changer import (
+    compute_dtype, convert_f0_stats, convert_features)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (frame_noise,
                                                            resolve_device)
 from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
@@ -136,6 +139,7 @@ def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
     device = resolve_device(device)
     _check_params(params, device)
     mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+    use_sr = runs_sr(use_sr, mode)
     wave = _on(wave, device)
     leaves = tuple(_tensors(params))
     sig = (tuple(wave.shape), num_frames, use_sr, mode, cfg, str(device),
@@ -176,6 +180,14 @@ def offline_convert_eager(params: dict, wave,
     mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
     dtype = compute_dtype(cfg)
     feat = analyze(_on(wave, device), num_frames, cfg.dsp)
+    if mode == "hifigan":
+        # the generator reads mc, ap and F0: no envelope, no SR
+        f0c, mc_c, ap = (torch.cat([x, x[-1:]]) for x in (
+            convert_f0_stats(feat.f0, params["f0_stats"]),
+            convert_mc(params["stage1"], feat.mc, feat.f0, cfg.acoustic,
+                       dtype), feat.ap))
+        return hifigan_vocode(params["vocoder_hifigan"], f0c, mc_c, ap,
+                              dtype)
     conv = _extend_one_frame(convert_features(params, feat, cfg,
                                               use_sr=use_sr))
     noise = frame_noise(noise_key, 0, num_frames, noise_bins(cfg),

@@ -1,5 +1,7 @@
-"""The port's configuration equals the JAX package's, and the port imports
-nothing of JAX, flax or the JAX package."""
+"""The port's configuration equals the JAX package's, apart from what the
+port alone has (the HiFi-GAN vocoder mode: the ``vocoder_hifigan`` section
+and ``vocoder_hifigan_params_path``), and the port imports nothing of JAX,
+flax or the JAX package."""
 
 import ast
 import dataclasses
@@ -15,6 +17,12 @@ from realtime_yukarin_tpu_torch import config as tconfig
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "realtime_yukarin_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "realtime_yukarin_tpu")
+PORT_ONLY = ("vocoder_hifigan", "vocoder_hifigan_params_path")
+
+
+def _jax_keys(d: dict) -> dict:
+    """A port config dict without the keys only the port has."""
+    return {k: v for k, v in d.items() if k not in PORT_ONLY}
 
 
 def _properties(obj) -> dict:
@@ -31,7 +39,9 @@ def _variant(mod):
                          ids=["default", "40ms_h128"])
 def test_config_fields_and_properties_match_jax(make):
     j, t = make(jconfig), make(tconfig)
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert dataclasses.asdict(j) == _jax_keys(dataclasses.asdict(t))
+    assert set(dataclasses.asdict(t)) - set(dataclasses.asdict(j)) == set(
+        PORT_ONLY)
     for part in ("dsp", "acoustic", "super_resolution", "vocoder_nn",
                  "vocoder_wave", "streaming", "serving"):
         jp, tp = getattr(j, part), getattr(t, part)
@@ -54,11 +64,39 @@ def test_resolve_vocoder_mode_matches_jax(args):
             == tconfig.resolve_vocoder_mode(*args))
 
 
+def test_resolve_vocoder_mode_takes_hifigan_in_the_port_only():
+    assert tconfig.resolve_vocoder_mode(False, "hifigan") == "hifigan"
+    assert tconfig.resolve_vocoder_mode(True, "hifigan") == "hifigan"
+    assert tconfig.Config(vocoder_mode="hifigan").resolved_vocoder_mode \
+        == "hifigan"
+    with pytest.raises(ValueError):
+        jconfig.resolve_vocoder_mode(False, "hifigan")
+    with pytest.raises(ValueError, match="hifigan"):
+        tconfig.resolve_vocoder_mode(False, "melgan")
+
+
 def test_config_from_dict_round_trip():
     d = jconfig.Config(compute_dtype="float32").to_dict()
-    assert tconfig.Config.from_dict(d).to_dict() == d
+    assert _jax_keys(tconfig.Config.from_dict(d).to_dict()) == d
     with pytest.raises(ValueError):
         tconfig.Config.from_dict({"dsp": {"no_such_knob": 1}})
+    # the port-only section, as JSON gives it (lists), round-trips
+    h = {"upsample_initial_channel": 256, "upsample_rates": [5, 4, 6],
+         "upsample_kernel_sizes": [10, 8, 12],
+         "resblock_kernel_sizes": [3, 5],
+         "resblock_dilation_sizes": [[1, 2], [2, 6]]}
+    t = tconfig.Config.from_dict({**d, "vocoder_mode": "hifigan",
+                                  "vocoder_hifigan": h,
+                                  "vocoder_hifigan_params_path": "g.npz"})
+    back = t.to_dict()
+    assert tconfig.Config.from_dict(back) == t and hash(t)
+    assert back["vocoder_hifigan"]["resblock_dilation_sizes"] == (
+        (1, 2), (2, 6))
+    assert _jax_keys(back) == {**d, "vocoder_mode": "hifigan"}
+    with pytest.raises(ValueError, match="odd"):
+        tconfig.Config.from_dict({"vocoder_hifigan": {
+            "resblock_kernel_sizes": [4],
+            "resblock_dilation_sizes": [[1]]}})
 
 
 def test_port_import_loads_no_jax():
