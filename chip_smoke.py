@@ -43,7 +43,15 @@ non-zero):
    and both of their designs (the cluster one and the wide one, which the
    wrappers pick by R) side by side at DESIGN_ROWS, each against the plain
    version and float64, with their times, and at ragged R = 2,049 and
-   10,239;
+   10,239.  Then the HiFi-GAN generator's fused tail
+   (``csrc/hifigan_tail.cu``) in bfloat16 at the shapes a streamed step of
+   the published generator gives it at HIFIGAN_LANES lanes
+   (``hifigan_shapes``: each lane's rows from ``StreamGeometry``):
+   conv_pre's at 512 channels, then at each of the four upsampling stages
+   the upsample's (cropped at the odd strides 5 and 3, not at 4 and 2) and
+   each other mode's: bit for bit against its plain version, its device
+   time per launch beside the plain version's (``device_ms``), its byte
+   bound, and a stage's 19 tails together;
 4. main path: ``VoiceChangerStream(device="cuda")`` at the default Config
    (full width, bf16 models, seeded perturbed weights) on 3 s of a seeded
    voiced/unvoiced signal in 100 ms chunks, then ``flush()``; checks the
@@ -174,8 +182,13 @@ non-zero):
    captured server at 64 lanes against its eager step and timed, every
    kernel shape one phase 3 held (R = 4 and 256 are in ``path_rows``),
    then its step counted;
-22. the kernels line: one JSON object with every kernel's numbers;
-23. last line: ``{"ok": true, "device": {...}}``.
+22. the hifigan mode: a captured ``BatchedServer`` at HIFIGAN_LANES lanes
+   of the published generator (bf16) for HIFIGAN_STEPS replays after its
+   capture: the tail launched once per gap between two convolutions a
+   replay (77), as captured and as counted, every shape it was given one
+   phase 3 held, the output finite and not silent, the step's p50 / p99;
+23. the kernels line: one JSON object with every kernel's numbers;
+24. last line: ``{"ok": true, "device": {...}}``.
 
 Phases 4, 6, 8-10, 12-17 (and 18's serving and its one-process training
 reference) run the captured programs: their launch counts come from the
@@ -215,6 +228,8 @@ REPLACES = {
     "power_spectrum": "realtime_yukarin_tpu/ops/pallas_analysis.py:100",
     "envelope_cepstrum": "realtime_yukarin_tpu/ops/pallas_analysis.py:169",
     "harmonic_bank_bwd": "realtime_yukarin_tpu/ops/pallas_synth.py:101",
+    "hifigan_tail": "none: added for the hifigan mode, which the JAX "
+                    "package lacks",
 }
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 100, 3
 # rows of one training or fine-tune batch of the quality recipe (8 x 16
@@ -248,6 +263,14 @@ SERVE_CELL_ROWS = (4 * 512, 20 * 512)
 # past the serve cells'
 DESIGN_ROWS = (128, 256, 320, 600, 800, 1024, 1280, 2048, 10240)
 DESIGN_RAGGED_ROWS = (2049, 10239)
+# The hifigan mode's lanes (those of the hifigan.serve256 cell) in phases
+# 3 and 22, and phase 22's replays.  Phase 3 runs the generator's fused
+# tail in bfloat16, each mode as an upsampling stage runs it: (mode, with
+# the stage's running sum, tails of that kind in a stage at the published
+# widths)
+HIFIGAN_LANES, HIFIGAN_STEPS = 256, 8
+TAIL_CASES = (("up", False, 1), ("act", False, 9), ("res", False, 6),
+              ("sum", False, 1), ("sum", True, 1), ("mean", True, 1))
 # Both bank kernels at ragged (R, H, hop): one row, one past a row block,
 # one past the batch; one harmonic, one past a 32-group, the COMPAT 128,
 # the default 161; the default hop and one above 128 that is no multiple of
@@ -284,6 +307,9 @@ VOCODER_PERTURB = 1e-2
 STREAM_OFFLINE_TOL = {"dsp": 2e-3, "ddsp": 2e-3, "wave": 3e-3}
 CLIENT_RATE = 48000
 FORWARD_KERNELS = ("harmonic_bank", "power_spectrum", "envelope_cepstrum")
+# the four TPU kernels' counterparts, every one of which the training paths
+# launch (the generator's tail runs in the hifigan mode alone)
+TPU_KERNELS = FORWARD_KERNELS + ("harmonic_bank_bwd",)
 # Phase 12: BatchedServer at 64 streams (R = 1280 rows per kernel launch)
 # for 24 steps in float32; these lanes held to single streams, one lane
 # paused for four steps, one reset; batched vs single stream within the
@@ -467,15 +493,19 @@ def path_rows(cfg) -> tuple[list[int], list[int]]:
 
 def launch_shape(name: str, args: tuple) -> tuple:
     """The shape a kernel's launcher arguments give it (ops/analysis.py,
-    ops/harmonic_bank.py): (R, K) for the analysis kernels, (R, H, hop)
-    for the bank, (R, H, hop, whether d_phi and d_frac are computed) for
-    its backward."""
+    ops/harmonic_bank.py, ops/hifigan_tail.py): (R, K) for the analysis
+    kernels, (R, H, hop) for the bank, (R, H, hop, whether d_phi and d_frac
+    are computed) for its backward, (rows, T, C, mode, y's samples a row)
+    for the generator's tail (y's are T + 1 where the crop applies)."""
     if name == "power_spectrum":
         return int(args[3]), int(args[5])
     if name == "envelope_cepstrum":
         return int(args[4]), int(args[5])
     if name == "harmonic_bank":
         return tuple(int(a) for a in args[5:8])
+    if name == "hifigan_tail":
+        rows, length, C = (int(a) for a in args[6:9])
+        return rows, length, C, int(args[10]), int(args[9]) // C
     return tuple(int(a) for a in args[9:12]) + (args[7] is not None,)
 
 
@@ -573,6 +603,179 @@ def designs_phase(cfg, dev, rng) -> None:
             _, p64 = abs_rel_err(plain.double(), ref64)
             print(line + f" plain vs float64 {p64:.3e}; wide vs float64 no "
                   f"worse than cluster: {e64['wide'] <= e64['cluster']}")
+
+
+def hifigan_shapes(cfg) -> list[tuple]:
+    """(rows, samples a row, channels, samples a row of the upsample's
+    output) at conv_pre and after each upsampling stage of ``cfg``'s
+    generator in a streamed step at HIFIGAN_LANES lanes: each lane's rows
+    are the chunk's frames, one more, and the generator's halo on each
+    side (``streaming/pipeline.py``'s Lv); a transposed conv of odd stride
+    gives one sample a row past the kept ones (the crop)."""
+    from realtime_yukarin_tpu_torch.streaming.state import StreamGeometry
+    h = cfg.vocoder_hifigan
+    geo = StreamGeometry.from_config(cfg, vocoder_mode="hifigan")
+    T = geo.chunk_frames + 1 + 2 * h.context_frames
+    shapes = [(HIFIGAN_LANES, T, h.upsample_initial_channel, T)]
+    for i, (u, k) in enumerate(zip(h.upsample_rates,
+                                   h.upsample_kernel_sizes)):
+        up = (T - 1) * u - 2 * ((k - u) // 2) + k
+        T *= u
+        shapes.append((HIFIGAN_LANES, T, h.channels(i), up))
+    return shapes
+
+
+def hifigan_tails(cfg) -> int:
+    """The tail's launches in one step of ``cfg``'s generator: conv_pre's,
+    then per stage the upsample's and one after each resblock conv."""
+    h = cfg.vocoder_hifigan
+    return 1 + len(h.upsample_rates) * (
+        1 + 2 * sum(len(ds) for ds in h.resblock_dilation_sizes))
+
+
+def tail_phase(cfg, dev) -> tuple[dict, set]:
+    """The generator's fused tail (``cfg``'s generator) in bfloat16 at
+    ``hifigan_shapes``: conv_pre's act, then each of TAIL_CASES at each
+    upsampling stage, the upsample's y with the samples a row its
+    transposed conv gives: equal to the plain version bit for bit, device
+    time per launch (``device_ms``) beside the plain version's, the byte
+    bound (``hifigan_tail_cost`` over HBM bandwidth).  Prints a line per
+    case and one per stage (its tails together); returns the kernels-line
+    record and the shapes held (``launch_shape``'s)."""
+    import torch
+    from realtime_yukarin_tpu_torch.ops import hifigan_tail as ht
+    g = torch.Generator().manual_seed(SEED)
+    stages, shapes = [], set()
+
+    def t(*shape):
+        return torch.randn(shape, generator=g).bfloat16().to(dev)
+
+    def case(label, mode, with_acc, rows, T, C, Ty, bias, r, acc):
+        """One mode at one shape: its (kernel, plain, bound) ms."""
+        y = t(rows, Ty, C)
+        rr = r if mode in ("res", "sum", "mean") else None
+        # "sum" adds into the running sum in place: a copy each call
+        fresh = mode == "sum" and with_acc
+
+        def run(fn):
+            a = acc.clone() if fresh else (acc if with_acc else None)
+            return fn(mode, y, bias, rr, a, 0.1, 3.0, T)
+        same = all(torch.equal(a, b) for a, b in zip(
+            run(ht.hifigan_tail), run(ht.hifigan_tail_plain)))
+        torch.cuda.synchronize()
+        _, nbytes = ht.hifigan_tail_cost(mode, rows, T, C, 2, with_acc)
+        b_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        copy = device_ms(lambda: acc.clone()) if fresh else 0.0
+        k_ms = device_ms(lambda: run(ht.hifigan_tail)) - copy
+        p_ms = device_ms(lambda: run(ht.hifigan_tail_plain), 10) - copy
+        print(f"[kernel] hifigan_tail {label} {mode}"
+              f"{' +sum' if with_acc else ''} ({rows}, {T}, {C}) from "
+              f"{Ty} a row, bf16: equal to plain {same} | device "
+              f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.2f} us (bytes; {100 * b_ms / k_ms:.1f}% of "
+              f"it)")
+        if not same:
+            raise AssertionError(f"hifigan_tail {mode} at {(rows, T, C)} "
+                                 f"from {Ty} a row: kernel and plain "
+                                 f"version differ")
+        shapes.add((rows, T, C, ht.MODES.index(mode), Ty))
+        return k_ms, p_ms, b_ms
+
+    (rows, T, C, _), *after = hifigan_shapes(cfg)
+    pre = case("conv_pre", "act", False, rows, T, C, T,
+               torch.randn(C, generator=g).to(dev), None, None)
+    for i, (rows, T, C, T_up) in enumerate(after):
+        bias = torch.randn(C, generator=g).to(dev)
+        r, acc = t(rows, T, C), t(rows, T, C)
+        stage = dict(kernel=0.0, plain=0.0, bound=0.0)
+        for mode, with_acc, count in TAIL_CASES:
+            ms = case(f"s{i + 1}", mode, with_acc, rows, T, C,
+                      T_up if mode == "up" else T, bias, r, acc)
+            for key, m in zip(("kernel", "plain", "bound"), ms):
+                stage[key] += count * m
+        print(f"[kernel] hifigan_tail s{i + 1}: a stage's "
+              f"{sum(c for *_, c in TAIL_CASES)} tails "
+              f"{stage['kernel']:.4f} ms (plain {stage['plain']:.4f} ms), "
+              f"bound {stage['bound']:.4f} ms "
+              f"({100 * stage['bound'] / stage['kernel']:.1f}%)")
+        stages.append(stage)
+    total = {k: sum(st[k] for st in stages) + m
+             for k, m in zip(("kernel", "plain", "bound"), pre)}
+    print(f"[kernel] hifigan_tail: conv_pre's and the stages' tails "
+          f"{total['kernel']:.4f} ms a step at {HIFIGAN_LANES} lanes (plain "
+          f"{total['plain']:.4f} ms), bound {total['bound']:.4f} ms")
+    record = dict(max_abs_err=0.0, ms=None, plain_ms=None,
+                  bound_ms=total["bound"], bound_by="bytes", library_ms=None,
+                  device_ms=total["kernel"], plain_device_ms=total["plain"],
+                  library_device_ms=None,
+                  stage_device_ms=[st["kernel"] for st in stages])
+    return record, shapes
+
+
+def hifigan_phase(checked: dict[str, set], dev="cuda") -> dict:
+    """Phase 22: a captured BatchedServer in the hifigan mode at
+    HIFIGAN_LANES lanes of the published generator (bf16), its first step
+    (warm-up and capture) then HIFIGAN_STEPS replays: the tail launched
+    once per gap between two convolutions a replay, as captured and as
+    counted, every shape it was given (``launch_shape``) one phase 3 held
+    (``checked``), the output finite and not silent.  Returns the phase's
+    launches for the kernels line."""
+    import torch
+    from realtime_yukarin_tpu_torch.config import Config
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+    cfg = Config.from_dict({"vocoder_mode": "hifigan"})
+    tails = hifigan_tails(cfg)
+    shapes, undo = record_shapes()
+    cuda.reset_counts()
+    try:
+        server = BatchedServer(seeded_params(cfg), cfg,
+                               num_streams=HIFIGAN_LANES, seed=SEED,
+                               vocoder_mode="hifigan", device=dev)
+        S = server.chunk_samples
+        xs = lane_signals(HIFIGAN_LANES, HIFIGAN_STEPS + 1, cfg.dsp.in_rate,
+                          S)
+        server.step(np.ascontiguousarray(xs[:, :S]))
+        first = cuda.HIFIGAN_TAIL.launches
+        secs, ys = [], []
+        for k in range(1, HIFIGAN_STEPS + 1):
+            t0 = time.perf_counter()
+            ys.append(server.step(np.ascontiguousarray(
+                xs[:, k * S: (k + 1) * S])))
+            secs.append(time.perf_counter() - t0)
+        replays = cuda.HIFIGAN_TAIL.launches - first
+        captured = server.program.kernel_launches.get("hifigan_tail", 0)
+        ok = server.captured
+        del server
+    finally:
+        undo()
+    launches = launch_counts()
+    y = np.stack(ys)
+    rms = float(np.sqrt(np.mean(y ** 2)))
+    p50, p99 = (float(np.percentile(secs, q)) * 1e3 for q in (50, 99))
+    chunk_s = cfg.streaming.chunk_samples(cfg.dsp) / cfg.dsp.sample_rate
+    seen = sorted(set(shapes["hifigan_tail"]))
+    unchecked = sorted(set(seen) - checked["hifigan_tail"])
+    print(f"[hifigan] {HIFIGAN_LANES} lanes captured={ok}: tail launches "
+          f"{first} in the first step (warm-up and capture), {replays} in "
+          f"{HIFIGAN_STEPS} replays, {captured} as captured (a replay's "
+          f"gaps between two convolutions: {tails}); step p50 / p99 "
+          f"{p50:.3f} / {p99:.3f} ms, aggregate "
+          f"x{HIFIGAN_LANES * chunk_s * 1e3 / p50:.1f} realtime; output "
+          f"finite={bool(np.isfinite(y).all())}, rms {rms:.4f}; shapes "
+          f"{seen}")
+    fails = []
+    if not ok or captured != tails or replays != tails * HIFIGAN_STEPS:
+        fails.append(f"tail launches {captured} as captured, {replays} in "
+                     f"{HIFIGAN_STEPS} replays, expected {tails} a replay")
+    if unchecked:
+        fails.append(f"shapes phase 3 did not check: {unchecked}")
+    if not np.isfinite(y).all() or rms < 1e-4:
+        fails.append(f"output non-finite or silent (rms {rms:.3e})")
+    if fails:
+        raise AssertionError(f"phase 22: {fails}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def abs_rel_err(a, b) -> tuple[float, float]:
@@ -1866,7 +2069,7 @@ def quality_phase(root, dev) -> tuple[dict, float]:
     failed = [w for w, ok in gates if not ok]
     if failed:
         raise AssertionError(f"quality gates failed: {failed}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in TPU_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"the quality recipe launched no {missing}")
     return launches, wall
@@ -3403,6 +3606,9 @@ def main() -> int:
             kernel_phase(kname, R, n_fft, cases[kname])
             checked[kname].add((R, K_d))
     designs_phase(cfg, dev, rng)
+    record["hifigan_tail"], tail_shapes = tail_phase(Config.from_dict(
+        {"vocoder_mode": "hifigan"}), dev)
+    checked["hifigan_tail"] |= tail_shapes
     kname = "harmonic_bank_bwd"
     names = ("d_aL", "d_aR", "d_phi", "d_frac")
     for R in (TRAIN_FRAMES, QUALITY_ROWS, TRAIN_BATCH * TRAIN_FRAMES,
@@ -3525,7 +3731,7 @@ def main() -> int:
         raise AssertionError(f"harmonic_bank_bwd launched "
                              f"{train_launches['harmonic_bank_bwd']} times "
                              f"in {n_train} training steps")
-    missing = [k for k, n in train_launches.items() if n == 0]
+    missing = [k for k in TPU_KERNELS if train_launches[k] == 0]
     if missing:
         raise AssertionError(f"the training path launched no {missing}")
 
@@ -3621,16 +3827,21 @@ def main() -> int:
     _, cost_launches = cost_phase(cfg, checked)
     print(f"[cost] phase seconds {time.perf_counter() - t0:.1f}")
 
-    # 22. kernels line (launches: every path's run — the default stream,
+    # 22. the hifigan mode's captured server
+    t0 = time.perf_counter()
+    hifigan_launches = hifigan_phase(checked, dev)
+    print(f"[hifigan] phase seconds {time.perf_counter() - t0:.1f}")
+
+    # 23. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,
     # the batched server, corpus preparation, corpus training, the quality
     # recipe, the ranks' serving and training, phase 20's training
-    # replays and analyses, and phase 21's 20 ms stream and server), 23.
-    # result line
+    # replays and analyses, phase 21's 20 ms stream and server, and phase
+    # 22's hifigan server), 24. result line
     paths = [launches, train_launches, *offline_launches.values(),
              *stream_launches.values(), batched_launches,
              *corpus_launches.values(), *multihost_launches.values(),
-             captured_train["launches"], cost_launches]
+             captured_train["launches"], cost_launches, hifigan_launches]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": [k.source for k in cuda.KERNELS if k.computes == name],

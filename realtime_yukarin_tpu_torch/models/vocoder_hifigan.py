@@ -19,15 +19,24 @@ folded, plain ones.  Over frames ``c`` [B, D_in, T]::
 with every conv SAME-padded and biased.  A transposed conv of odd stride u
 and kernel 2u gives u·L + 1 samples; the trailing one is cropped, so every
 stage gives u samples a frame and frame t owns output samples
-[t·hop, (t + 1)·hop).  Channels-first inside, frame-major [..., T, D_in]
-at the boundary like the other vocoders; kernels and activations in the
-compute dtype (bfloat16 on the default path), the output in float32 (or
-float64, for a float64 witness).
+[t·hop, (t + 1)·hop).
+
+Channels-last inside: the activations are [B, T, C] from the frame-major
+input [..., T, D_in] to conv_post, and every convolution runs on a
+[B, C, 1, T] view of them whose memory is NHWC, against weights laid out
+channels-last once per generator and compute dtype (:meth:`packed`), with
+no bias.  What lies between two convolutions (the bias, the crop, the
+residual add, the resblocks' mean, the leaky ReLU) is one pass of
+``ops/hifigan_tail.py`` (the CUDA kernel ``csrc/hifigan_tail.cu`` on the
+card): 1 + 19 a stage at the published widths.  Kernels and activations
+in the compute dtype (bfloat16 on the default path), biases and the tails'
+arithmetic in float32, the output in float32 (or float64, for a float64
+witness).  Inference only: the port trains no generator.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn as nn
@@ -36,21 +45,59 @@ import torch.nn.functional as Fn
 from realtime_yukarin_tpu_torch.config import DspConfig, VocoderHiFiGANConfig
 from realtime_yukarin_tpu_torch.models.vocoder_nn import (vocoder_input_dim,
                                                           vocoder_inputs)
+from realtime_yukarin_tpu_torch.ops import cuda
+from realtime_yukarin_tpu_torch.ops.hifigan_tail import hifigan_tail
 
 LRELU_SLOPE = 0.1
 POST_SLOPE = 0.01       # the generator's last activation: torch's default
 
 
-def _conv(x, conv: nn.Conv1d, dtype, dilation: int = 1) -> torch.Tensor:
-    """SAME-padded ``conv`` on [B, C, T] in ``dtype`` (odd kernel)."""
-    k = conv.kernel_size[0]
-    return Fn.conv1d(x, conv.weight.to(dtype), conv.bias.to(dtype),
-                     padding=dilation * (k - 1) // 2, dilation=dilation)
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, C] -> the [B, C, 1, T] view of the same memory (NHWC)."""
+    return x.transpose(1, 2).unsqueeze(2)
+
+
+def _btc(y: torch.Tensor) -> torch.Tensor:
+    """A convolution's [B, C, 1, T] output -> its [B, T, C] view, which
+    is contiguous when the output is NHWC in memory, as the tails
+    require."""
+    return y.squeeze(2).transpose(1, 2)
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, dilation: int = 1
+          ) -> torch.Tensor:
+    """SAME-padded conv of [B, T, C_in] by ``w`` [C_out, C_in, 1, k]
+    (channels-last, odd k), no bias: [B, T, C_out]."""
+    k = w.shape[-1]
+    return _btc(Fn.conv2d(_nhwc(x), w, padding=(0, dilation * (k - 1) // 2),
+                          dilation=(1, dilation)))
+
+
+def _conv_up(x: torch.Tensor, w: torch.Tensor, u: int) -> torch.Tensor:
+    """Transposed conv of stride u of [B, L, C_in] by ``w`` [C_in, C_out,
+    1, k] (channels-last), no bias: [B, u·L (+ 1 for odd u), C_out]."""
+    k = w.shape[-1]
+    return _btc(Fn.conv_transpose2d(_nhwc(x), w, stride=(1, u),
+                                    padding=(0, (k - u) // 2)))
+
+
+class Packed(NamedTuple):
+    """A generator's weights as its channels-last forward reads them, in
+    one compute dtype: each conv as (weight [C_out, C_in, 1, k], or [C_in,
+    C_out, 1, k] for a transposed one, channels-last in the compute dtype;
+    bias [C_out] in float32, or float64 for a float64 witness).  ``blocks``
+    is by stage, then resblock, then dilation: (c1's weight and bias,
+    c2's)."""
+    pre: tuple
+    ups: tuple
+    blocks: tuple
+    post: tuple
 
 
 class ResBlock1(nn.Module):
     """V1's residual block: per dilation d a dilated k-tap conv and a plain
-    one, each after a leaky ReLU, added to the input."""
+    one, each after a leaky ReLU, added to the input.  Holds the weights;
+    :class:`HiFiGANGenerator` runs it channels-last."""
 
     def __init__(self, channels: int, kernel: int, dilations: tuple):
         super().__init__()
@@ -60,11 +107,23 @@ class ResBlock1(nn.Module):
         self.convs2 = nn.ModuleList(nn.Conv1d(channels, channels, kernel)
                                     for _ in dilations)
 
-    def forward(self, x, dtype):
-        for d, c1, c2 in zip(self.dilations, self.convs1, self.convs2):
-            t = _conv(Fn.leaky_relu(x, LRELU_SLOPE), c1, dtype, d)
-            x = x + _conv(Fn.leaky_relu(t, LRELU_SLOPE), c2, dtype)
-        return x
+
+def _resblock(x: torch.Tensor, xa: torch.Tensor, layers: tuple,
+              dilations: tuple, acc: torch.Tensor | None, last: bool,
+              n: int, slope: float) -> torch.Tensor:
+    """One ResBlock1 over x (xa = lrelu(x, 0.1)), channels-last: its output
+    added to the stage's sum ``acc`` (in place, or a new sum for the first
+    block), or, for the stage's ``last`` block, lrelu(sum / n, slope)."""
+    for m, (d, (w1, b1, w2, b2)) in enumerate(zip(dilations, layers)):
+        (t,) = hifigan_tail("act", _conv(xa, w1, d), b1, slope=LRELU_SLOPE)
+        v = _conv(t, w2)
+        if m < len(dilations) - 1:
+            x, xa = hifigan_tail("res", v, b2, r=x, slope=LRELU_SLOPE)
+        elif last:
+            return hifigan_tail("mean", v, b2, r=x, acc=acc, slope=slope,
+                                divisor=float(n))[0]
+        else:
+            return hifigan_tail("sum", v, b2, r=x, acc=acc)[0]
 
 
 class HiFiGANGenerator(nn.Module):
@@ -97,6 +156,8 @@ class HiFiGANGenerator(nn.Module):
                              cfg.resblock_dilation_sizes))
         self.conv_post = nn.Conv1d(cfg.channels(len(cfg.upsample_rates) - 1),
                                    1, 7)
+        # dtype -> (the parameters' key, Packed, the tensors it holds)
+        self._packed: dict = {}
 
     def flax_layers(self) -> dict[str, nn.Module]:
         """name -> layer, in the published module order (the names of the
@@ -111,27 +172,63 @@ class HiFiGANGenerator(nn.Module):
         layers["conv_post"] = self.conv_post
         return layers
 
+    def packed(self, dtype: torch.dtype) -> Packed:
+        """The weights laid out for the forward in ``dtype``: made once,
+        and again only when a parameter is replaced or written in place
+        (keyed by each one's storage and version; the entry keeps the
+        parameters' storage alive, so no new tensor can reuse an address
+        the key holds).  Held by a CUDA graph captured around the call."""
+        params = [p.detach() for p in self.parameters()]
+        key = [(p.data_ptr(), p._version) for p in params]
+        entry = self._packed.get(dtype)
+        if entry is None or entry[0] != key:
+            bias_dtype = torch.promote_types(dtype, torch.float32)
+            held = list(params)
+
+            def conv(layer):
+                w = layer.weight.detach().to(dtype).unsqueeze(2)
+                wb = (w.contiguous(memory_format=torch.channels_last),
+                      layer.bias.detach().to(bias_dtype).contiguous())
+                held.extend(wb)
+                return wb
+            n = len(self.cfg.resblock_kernel_sizes)
+            blocks = tuple(
+                tuple(tuple(conv(c1) + conv(c2)
+                            for c1, c2 in zip(rb.convs1, rb.convs2))
+                      for rb in self.resblocks[i * n: (i + 1) * n])
+                for i in range(len(self.ups)))
+            packed = Packed(conv(self.conv_pre),
+                            tuple(conv(up) for up in self.ups), blocks,
+                            conv(self.conv_post))
+            entry = self._packed[dtype] = key, packed, held
+        cuda.hold(*entry[2])
+        return entry[1]
+
+    @torch.no_grad()
     def forward(self, x: torch.Tensor, dtype=torch.float32,
                 mark: Callable[[str], None] | None = None) -> torch.Tensor:
-        lead, (T, _) = x.shape[:-2], x.shape[-2:]
+        lead, (T, D) = x.shape[:-2], x.shape[-2:]
         mark = mark or (lambda stage: None)
-        h = _conv(x.reshape(-1, T, x.shape[-1]).transpose(1, 2).to(dtype),
-                  self.conv_pre, dtype)
+        w = self.packed(dtype)
+        (a,) = hifigan_tail("act", _conv(x.reshape(-1, T, D).to(dtype),
+                                         w.pre[0]),
+                            w.pre[1], slope=LRELU_SLOPE)
+        rates = self.cfg.upsample_rates
         n = len(self.cfg.resblock_kernel_sizes)
-        for i, (up, u) in enumerate(zip(self.ups, self.cfg.upsample_rates)):
+        for i, u in enumerate(rates):
             mark(f"vocoder_s{i + 1}")
-            h = Fn.conv_transpose1d(
-                Fn.leaky_relu(h, LRELU_SLOPE), up.weight.to(dtype),
-                up.bias.to(dtype), stride=u,
-                padding=(up.kernel_size[0] - u) // 2)[..., : T * u]
             T *= u
-            acc = self.resblocks[i * n](h, dtype)
-            for rb in self.resblocks[i * n + 1: (i + 1) * n]:
-                acc = acc + rb(h, dtype)
-            h = acc / n
+            h, a = hifigan_tail("up", _conv_up(a, w.ups[i][0], u),
+                                w.ups[i][1], slope=LRELU_SLOPE, length=T)
+            slope = LRELU_SLOPE if i + 1 < len(rates) else POST_SLOPE
+            acc = None
+            for j, (layers, ds) in enumerate(zip(
+                    w.blocks[i], self.cfg.resblock_dilation_sizes)):
+                acc = _resblock(h, a, layers, ds, acc, j == n - 1, n, slope)
+            a = acc
         mark("vocoder")
-        y = _conv(Fn.leaky_relu(h, POST_SLOPE), self.conv_post, dtype)
-        y = y.to(torch.promote_types(y.dtype, torch.float32))
+        y = _conv(a, w.post[0])
+        y = y.to(torch.promote_types(y.dtype, torch.float32)) + w.post[1]
         return torch.tanh(y).reshape(*lead, T)
 
 

@@ -15,8 +15,10 @@ Conventions:
   leaves out the taps of a ``'SAME'`` convolution that fall on the
   padding, so its count of the same function differs by both
   (``tests/test_torch_cost.py`` bounds the difference).
-* **The port's four kernels** report themselves by formula (:func:`kernel`,
-  the ``*_cost`` functions beside each wrapper in ``ops/``): each launch
+* **The port's kernels** (the four TPU kernels' counterparts and the
+  HiFi-GAN generator's fused tail, which counts no FLOPs: it is
+  elementwise) report themselves by formula (:func:`kernel`, the
+  ``*_cost`` functions beside each wrapper in ``ops/``): each launch
   adds its FLOPs and bytes once, whether the CUDA kernel or, on the CPU,
   the plain version computes it, and the aten ops of the plain version
   are not counted.  A ctypes launch never reaches the dispatcher, and the
@@ -131,7 +133,8 @@ def kernel(name: str, shape: tuple, flops: int, nbytes: int):
     formula's) once, and the aten ops run inside the block count nothing.
     ``shape`` is the launch's, as its launcher is given it: (R, K) for the
     analysis kernels, (R, H, hop) for the bank, (R, H, hop, phase) for its
-    backward.  Outside a count it does nothing."""
+    backward, (rows, T, C, mode, y's samples a row) for the generator's
+    tail.  Outside a count it does nothing."""
     count = _open_count()
     if count is None:
         yield
