@@ -1123,7 +1123,7 @@ def train_parity(cfg, dev) -> dict:
     return out
 
 
-def run_stream(params, cfg, x, device, vocoder_mode=None):
+def run_stream(params, cfg, x, device, vocoder_mode="dsp"):
     """Feed ``x`` chunk by chunk, then flush.  Returns (output trimmed to
     the input timeline, per-chunk seconds, voicing per step, steps)."""
     from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
@@ -1289,7 +1289,7 @@ def streams_phase(cfg, params, dev) -> dict:
     rate_cfg = dataclasses.replace(cfg, dsp=dataclasses.replace(
         cfg.dsp, input_rate=CLIENT_RATE, output_rate=CLIENT_RATE))
     runs = (("ddsp", cfg, "ddsp"), ("wave", cfg, "wave"),
-            (f"{CLIENT_RATE // 1000} kHz client", rate_cfg, None))
+            (f"{CLIENT_RATE // 1000} kHz client", rate_cfg, "dsp"))
     launches = {}
     for label, c, mode in runs:
         x = test_signal(SECONDS, c.dsp.in_rate, SEED)

@@ -24,6 +24,7 @@ import argparse
 import torch
 
 from realtime_yukarin_tpu_torch.config import VOCODER_MODES, Config
+from realtime_yukarin_tpu_torch.models.vocoders import mode_from_flags
 from realtime_yukarin_tpu_torch.models.voice_changer import (init_params,
                                                              load_all_params)
 from realtime_yukarin_tpu_torch.pipeline import offline_convert_io
@@ -51,8 +52,7 @@ def main(argv: list[str] | None = None) -> None:
 
     device = resolve_device(args.device)
     cfg = Config.from_yaml(args.config_path) if args.config_path else Config()
-    mode = (args.vocoder or ("ddsp" if args.neural_vocoder
-                             else cfg.resolved_vocoder_mode))
+    mode = mode_from_flags(args.vocoder, args.neural_vocoder, cfg)
     params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
                          device, vocoder_mode=mode)
     params = load_all_params(params, cfg, params_path=args.params_path)

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from realtime_yukarin_tpu_torch.config import VOCODER_MODES, Config
+from realtime_yukarin_tpu_torch.models.vocoders import mode_from_flags
 from realtime_yukarin_tpu_torch.models.voice_changer import (init_params,
                                                              load_all_params)
 from realtime_yukarin_tpu_torch.parallel.multihost import (init_multihost,
@@ -126,9 +127,8 @@ def main(argv: list[str] | None = None) -> None:
     rank, world = init_multihost(backend=args.backend, device=device)
     device = rank_device(device)
     cfg = Config.from_yaml(args.config_path) if args.config_path else Config()
-    args.vocoder_mode = (args.vocoder
-                         or ("ddsp" if args.neural_vocoder
-                             else cfg.resolved_vocoder_mode))
+    args.vocoder_mode = mode_from_flags(args.vocoder, args.neural_vocoder,
+                                        cfg)
     params = init_params(cfg, torch.Generator().manual_seed(cfg.seed),
                          device, vocoder_mode=args.vocoder_mode)
     params = load_all_params(params, cfg, params_path=args.params_path)

@@ -33,7 +33,7 @@ except Exception:  # pragma: no cover
 HARMONIC_NYQUIST_FRACTION = 0.95
 
 
-# the synthesis stages; "hifigan" is the port's alone
+# the synthesis stages (models/vocoders.py); "hifigan" is the port's alone
 VOCODER_MODES = ("dsp", "ddsp", "wave", "hifigan")
 
 
@@ -51,13 +51,6 @@ def resolve_vocoder_mode(use_neural_vocoder: bool,
     if vocoder_mode is not None:
         return _check_mode(vocoder_mode)
     return "ddsp" if use_neural_vocoder else "dsp"
-
-
-def runs_sr(use_sr: bool, vocoder_mode: str) -> bool:
-    """Whether stage 2 (envelope super-resolution) runs: it refines the
-    spectral envelope, which the HiFi-GAN generator does not read (it is
-    conditioned on mc, ap and F0), so never in the hifigan mode."""
-    return use_sr and vocoder_mode != "hifigan"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,13 +9,10 @@ tensors).  Weights cross to and from the JAX package in its ``.npz`` layout
 ``stage1/params/block_0/conv/kernel`` — through :func:`params_from_jax`
 (strict like ``unflatten_params``) and :func:`params_to_jax`.
 
-The ``"hifigan"`` vocoder mode adds ``"vocoder_hifigan"``: a
-:class:`~realtime_yukarin_tpu_torch.models.vocoder_hifigan.HiFiGANGenerator`,
-built (:func:`init_params`) and loaded (:func:`load_all_params`,
-``cfg.vocoder_hifigan_params_path``) in that mode only.  The JAX package
-has no such net, so it is not one of ``NETS`` and not in the ``.npz``
-layout both packages read; a full-tree load keeps the generator the
-params held.
+A vocoder mode's own net (``models/vocoders.py``: the hifigan mode's
+``"vocoder_hifigan"``) is built (:func:`init_params`) and loaded
+(:func:`load_all_params`) in that mode only.  The JAX package has none, so
+it is not in ``NETS`` or the ``.npz`` layout; a full-tree load keeps it.
 """
 
 from __future__ import annotations
@@ -35,14 +32,13 @@ from realtime_yukarin_tpu_torch.models.f0_stats import F0Statistics
 from realtime_yukarin_tpu_torch.models.initializers import init_module
 from realtime_yukarin_tpu_torch.models.super_resolution import (
     SRNet, refine_envelope)
-from realtime_yukarin_tpu_torch.models.vocoder_hifigan import \
-    HiFiGANGenerator
 from realtime_yukarin_tpu_torch.models.vocoder_nn import VocoderControlNet
 from realtime_yukarin_tpu_torch.models.vocoder_wave import WaveDecoderNet
+from realtime_yukarin_tpu_torch.models.vocoders import (EXTRA_NETS, HIFIGAN,
+                                                        vocoder)
 
 F0_STAT_NAMES = ("src_mean", "src_std", "tgt_mean", "tgt_std")
 NETS = ("stage1", "stage2", "vocoder", "vocoder_wave")
-HIFIGAN = "vocoder_hifigan"     # the port's own net, in the hifigan mode
 
 
 def stage_nets(cfg: Config) -> dict[str, nn.Module]:
@@ -58,14 +54,14 @@ def init_params(cfg: Config, generator: torch.Generator,
     """Fresh parameters with the JAX ``init_params`` shapes for all five
     subtrees: lecun-normal kernels, zero biases, zero heads (so both stages
     are the identity and both vocoders the DSP renderer until trained).
-    In the ``"hifigan"`` mode (``vocoder_mode``, else the config's) the
-    HiFi-GAN generator too, drawn after the rest.  Inference copy on
-    ``device`` (see :func:`params_to`)."""
+    A mode with a net of its own (``vocoder_mode``, else the config's;
+    the hifigan mode's generator) adds it, drawn after the rest.
+    Inference copy on ``device`` (see :func:`params_to`)."""
     nets = {k: init_module(net, generator)
             for k, net in stage_nets(cfg).items()}
-    if (vocoder_mode or cfg.resolved_vocoder_mode) == "hifigan":
-        nets[HIFIGAN] = init_module(
-            HiFiGANGenerator(cfg.vocoder_hifigan, cfg.dsp), generator)
+    net = vocoder(vocoder_mode or cfg.resolved_vocoder_mode).net
+    if net is not None:
+        nets[net[0]] = init_module(net[1](cfg), generator)
     f0_stats = {"src_mean": math.log(160.0), "src_std": 0.25,
                 "tgt_mean": math.log(160.0), "tgt_std": 0.25}
     return params_to({**nets, "f0_stats": {
@@ -76,7 +72,7 @@ def init_params(cfg: Config, generator: torch.Generator,
 def _copy(params: dict, device, trainable: bool) -> dict:
     device = torch.device(device)
     nets = {}
-    for k in NETS + (HIFIGAN,):
+    for k in NETS + EXTRA_NETS:
         if k in params:
             net = copy.deepcopy(params[k]).to(device)
             nets[k] = (net.train() if trainable else net.eval()
@@ -126,15 +122,19 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def convert_features(params: dict, feat: AcousticFeature, cfg: Config,
-                     use_sr: bool = True, dtype=None) -> AcousticFeature:
+                     use_sr: bool = True, dtype=None,
+                     envelope: bool = True) -> AcousticFeature:
     """feature -> converted feature: F0 moment matching, stage-1 mc
     mapping, mc -> envelope decode, stage-2 envelope super-resolution;
-    aperiodicity passes through.  Frame-major [T, ...] or [B, T, ...]."""
+    aperiodicity passes through.  Frame-major [T, ...] or [B, T, ...].
+    ``envelope`` False (a mode that reads none): no decode and no SR."""
     if dtype is None:
         dtype = compute_dtype(cfg)
     f0c = convert_f0_stats(feat.f0, params["f0_stats"])
     mc_c = convert_mc(params["stage1"], feat.mc, feat.f0, cfg.acoustic,
                       dtype)
+    if not envelope:
+        return AcousticFeature(f0=f0c, env=None, ap=feat.ap, mc=mc_c)
     env_low = decode_mcep(mc_c, cfg.dsp)
     env_c = (refine_envelope(params["stage2"], env_low, cfg.super_resolution,
                              cfg.dsp, dtype) if use_sr else env_low)
@@ -351,7 +351,7 @@ def load_all_params(params: dict, cfg: Config,
     Every parameter file is read strictly, as ``.npz`` or flax
     ``.msgpack``."""
     device = params["f0_stats"]["src_mean"].device
-    kept = {HIFIGAN: params[HIFIGAN]} if HIFIGAN in params else {}
+    kept = {k: params[k] for k in EXTRA_NETS if k in params}
     for full in (cfg.params_path, params_path):
         if full:
             params = {**load_params_npz(full, cfg, device), **kept}

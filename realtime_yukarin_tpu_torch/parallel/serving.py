@@ -44,21 +44,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import (Config, resolve_vocoder_mode,
-                                               runs_sr)
+from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.models.acoustic import convert_mc_streamed
 from realtime_yukarin_tpu_torch.models.super_resolution import \
     refine_envelope
 from realtime_yukarin_tpu_torch.models.vocoder_nn import vocoder_input_dim
+from realtime_yukarin_tpu_torch.models.vocoders import vocoder
 from realtime_yukarin_tpu_torch.models.voice_changer import (compute_dtype,
                                                              params_to)
 from realtime_yukarin_tpu_torch.parallel.mesh import (Mesh, make_mesh,
                                                       shard_params)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
-    lane_noise_keys, resolve_device, streaming_step)
+    init_stream, lane_noise_keys, resolve_device, streaming_step)
 from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
 from realtime_yukarin_tpu_torch.streaming.state import (StreamCarry,
-                                                        StreamGeometry,
                                                         tree_copy_, tree_map)
 from realtime_yukarin_tpu_torch.utils import cost, profiling
 
@@ -69,8 +68,7 @@ def _lanes(mask: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
 
 
 def make_batched_step(cfg: Config, use_sr: bool = True,
-                      use_neural_vocoder: bool = False,
-                      vocoder_mode: str | None = None):
+                      vocoder_mode: str = "dsp"):
     """The batched streaming step.
 
     Returns step(params, init_carry, carries, chunks [N, S], keys [N, 3],
@@ -89,7 +87,7 @@ def make_batched_step(cfg: Config, use_sr: bool = True,
     then ``carry_out`` (the live mask); the caller marks ``end`` once the
     carry is stored.
     """
-    mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+    vocoder(vocoder_mode)   # an unknown mode fails here, not in the step
 
     def step(params, init_carry, carries, chunks, keys, live, reset):
         profiling.mark("carry_in", chunks)
@@ -97,7 +95,7 @@ def make_batched_step(cfg: Config, use_sr: bool = True,
             lambda init, c: torch.where(_lanes(reset, c), init, c),
             init_carry, carries)
         out, new = streaming_step(params, carries, chunks, keys, cfg,
-                                  use_sr, vocoder_mode=mode)
+                                  use_sr, vocoder_mode=vocoder_mode)
         profiling.mark("carry_out", chunks)
         kept = tree_map(
             lambda n, old: torch.where(_lanes(live, n), n, old),
@@ -125,25 +123,21 @@ class BatchedServer:
 
     def __init__(self, params: dict, cfg: Config,
                  num_streams: int | None = None, use_sr: bool = True,
-                 use_neural_vocoder: bool = False, seed: int = 0,
-                 vocoder_mode: str | None = None, device=None,
+                 seed: int = 0, vocoder_mode: str = "dsp", device=None,
                  mesh: Mesh | None = None):
-        mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+        mode, voc = vocoder_mode, vocoder(vocoder_mode)
         self.device = resolve_device(device)
         self._cfg = cfg
-        self._mode, self._use_sr = mode, runs_sr(use_sr, mode)
+        self._mode, self._use_sr = mode, use_sr and voc.reads_envelope
         self.mesh = mesh if mesh is not None else make_mesh()
-        if mode == "hifigan" and self.mesh.model_parallel > 1:
-            raise ValueError("the hifigan mode serves at model_parallel 1: "
-                             "the generator's layers do not split over a "
-                             "model group")
+        if not voc.splits and self.mesh.model_parallel > 1:
+            raise ValueError(f"the {mode} mode serves at model_parallel 1: "
+                             "its vocoder does not split over a model group")
         dp = self.mesh.data_size
         n = -(-(num_streams or cfg.serving.num_streams) // dp) * dp
         self.num_streams = n
         lo = self.mesh.data_index * (n // dp)
         self.local_slots = range(lo, lo + n // dp)
-        self._geo = StreamGeometry.from_config(cfg, use_sr,
-                                               vocoder_mode=mode)
         self._step = make_batched_step(cfg, use_sr, vocoder_mode=mode)
         self._params = shard_params(self.mesh,
                                     params_to(params, self.device))
@@ -151,9 +145,8 @@ class BatchedServer:
         # reset lane goes back to this stored carry (no rebuild while the
         # other lanes wait)
         with torch.no_grad():
-            self._init_carry = StreamCarry.init(cfg, self._geo, self._params,
-                                                self.device,
-                                                vocoder_mode=mode)
+            self._init_carry, self._geo = init_stream(
+                self._params, cfg, use_sr, mode, self.device)
         nl = len(self.local_slots)
         self._carries = tree_map(
             lambda x: x.expand(nl, *x.shape).clone(), self._init_carry)
@@ -323,18 +316,16 @@ def model_stage_flops(server: BatchedServer) -> dict[str, int]:
     each counted standalone (``utils/cost.py``) at the exact shapes the
     step gives it: {"stage1": the conv stack streamed over the Fc fresh
     frames with its per-layer caches, "stage2": super-resolution over the
-    stage-1 cache frames plus Fc (0 without SR and in the hifigan mode,
-    which runs none), "vocoder": the server's
-    DDSP control net or wave decoder over Fc + 1 + 2 x its context frames
-    (0 in the dsp and hifigan modes)}, and in the hifigan mode
-    "vocoder_hifigan": the HiFi-GAN generator over the same rows.  Their
-    sum is the learned share of
-    :meth:`BatchedServer.step_cost_analysis`; the rest is structural: the
-    analysis bases and kernels, selection one-hots, prefix sums, the
-    renderer.  The counterpart of ``bench.py``'s ``_model_stage_flops``;
-    at model_parallel > 1 each rank counts its shard of every split layer
-    (replicated layers count on every rank), and every rank of the model
-    group must call it.
+    stage-1 cache frames plus Fc (0 without SR, which a mode that reads no
+    envelope never runs)} and the vocoder mode's entries (its record's
+    ``learned_calls``, ``models/vocoders.py``): its nets over Fc + 1 + 2 x
+    its context frames, "vocoder" 0 where it has none.  Their sum is the
+    learned share of :meth:`BatchedServer.step_cost_analysis`; the rest is
+    structural: the analysis bases and kernels, selection one-hots, prefix
+    sums, the renderer.  The counterpart of ``bench.py``'s
+    ``_model_stage_flops``; at model_parallel > 1 each rank counts its
+    shard of every split layer (replicated layers count on every rank),
+    and every rank of the model group must call it.
     """
     cfg, geo = server._cfg, server._geo
     params, dev = server._params, server.device
@@ -357,22 +348,7 @@ def model_stage_flops(server: BatchedServer) -> dict[str, int]:
         refine_envelope, params["stage2"],
         zeros(geo.stage1_cache_frames + Fc, dsp.spec_bins),
         cfg.super_resolution, dsp, dtype) if server._use_sr else 0
-    ctx = {"ddsp": cfg.vocoder_nn.context_frames,
-           "wave": cfg.vocoder_wave.context_frames,
-           "hifigan": cfg.vocoder_hifigan.context_frames}.get(server._mode)
-    if ctx is None:
-        out["vocoder"] = 0
-        return out
-    x = zeros(Fc + 1 + 2 * ctx, vocoder_input_dim(dsp))
-    if server._mode == "hifigan":
-        out["vocoder"] = 0
-        out["vocoder_hifigan"] = flops(params["vocoder_hifigan"], x, dtype)
-    elif server._mode == "ddsp":
-        out["vocoder"] = flops(params["vocoder"], x, dtype)
-    else:
-        L = Fc + 1
-        out["vocoder"] = flops(
-            params["vocoder_wave"], x, zeros(L), zeros(L),
-            zeros(L, dtype=torch.bool), zeros(), zeros(dtype=torch.bool),
-            zeros(cfg.vocoder_wave.phase_fractional), ctx, L, dtype)
-    return out
+    voc = vocoder(server._mode)
+    x = zeros(Fc + 1 + 2 * voc.context_frames(cfg), vocoder_input_dim(dsp))
+    calls = voc.learned_calls(params, cfg, x, Fc + 1, dtype)
+    return {**out, **{k: flops(*c) if c else 0 for k, c in calls.items()}}

@@ -33,35 +33,23 @@ from typing import NamedTuple
 
 import torch
 
-from realtime_yukarin_tpu_torch.config import (Config, resolve_vocoder_mode,
-                                               runs_sr)
+from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.dsp.resample import resample_signal
-from realtime_yukarin_tpu_torch.dsp.synthesis import synthesize
 from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature, analyze
-from realtime_yukarin_tpu_torch.models.vocoder_hifigan import hifigan_vocode
-from realtime_yukarin_tpu_torch.models.vocoder_nn import neural_vocode
-from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
-from realtime_yukarin_tpu_torch.models.acoustic import convert_mc
+from realtime_yukarin_tpu_torch.models.vocoders import vocoder
 from realtime_yukarin_tpu_torch.models.voice_changer import (
-    compute_dtype, convert_f0_stats, convert_features)
+    compute_dtype, convert_features)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (frame_noise,
                                                            resolve_device)
 from realtime_yukarin_tpu_torch.streaming.program import CapturedProgram
-from realtime_yukarin_tpu_torch.streaming.state import (StreamGeometry,
-                                                        input_plan,
-                                                        noise_bins,
-                                                        output_plan,
-                                                        tree_copy_, tree_map)
+from realtime_yukarin_tpu_torch.streaming.state import (
+    input_plan, noise_bins, output_plan, tree_copy_, tree_map)
 
 
-def _extend_one_frame(feat: AcousticFeature) -> AcousticFeature:
+def extend_one_frame(feat: AcousticFeature) -> AcousticFeature:
     """Repeat the last frame: offline stand-in for the streaming layer's
     one-frame synthesis lookahead."""
-    return AcousticFeature(
-        f0=torch.cat([feat.f0, feat.f0[-1:]]),
-        env=torch.cat([feat.env, feat.env[-1:]]),
-        ap=torch.cat([feat.ap, feat.ap[-1:]]),
-        mc=torch.cat([feat.mc, feat.mc[-1:]]))
+    return tree_map(lambda a: torch.cat([a, a[-1:]]), feat)
 
 
 def _on(wave, device) -> torch.Tensor:
@@ -128,8 +116,7 @@ def cached_programs() -> list[CapturedProgram]:
 
 def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
                     cfg: Config, num_frames: int, use_sr: bool = True,
-                    use_neural_vocoder: bool = False,
-                    vocoder_mode: str | None = None, device=None
+                    vocoder_mode: str = "dsp", device=None
                     ) -> torch.Tensor:
     """wave [T] at the internal rate -> converted wave [num_frames * hop]
     on ``device``, the caller's own tensor: :func:`offline_convert_eager`,
@@ -138,28 +125,28 @@ def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
     captured for it from the second time on."""
     device = resolve_device(device)
     _check_params(params, device)
-    mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
-    use_sr = runs_sr(use_sr, mode)
+    use_sr = use_sr and vocoder(vocoder_mode).reads_envelope
     wave = _on(wave, device)
     leaves = tuple(_tensors(params))
-    sig = (tuple(wave.shape), num_frames, use_sr, mode, cfg, str(device),
-           tuple(t.data_ptr() for t in leaves))
+    sig = (tuple(wave.shape), num_frames, use_sr, vocoder_mode, cfg,
+           str(device), tuple(t.data_ptr() for t in leaves))
 
     def build():
         buf = wave.clone()
         key = torch.tensor(noise_key, dtype=torch.int64, device=device)
         return _Program(CapturedProgram(
-            lambda: offline_convert_eager(params, buf, key, cfg, num_frames,
-                                          use_sr, vocoder_mode=mode,
-                                          device=device),
-            device=device, name=f"offline {num_frames} frames ({mode})"),
+            lambda: offline_convert_eager(
+                params, buf, key, cfg, num_frames, use_sr,
+                vocoder_mode=vocoder_mode, device=device),
+            device=device,
+            name=f"offline {num_frames} frames ({vocoder_mode})"),
             buf, key, leaves)
 
     entry = _program_for(sig, build, device)
     if entry is None:
         return offline_convert_eager(params, wave, noise_key, cfg,
-                                     num_frames, use_sr, vocoder_mode=mode,
-                                     device=device)
+                                     num_frames, use_sr,
+                                     vocoder_mode=vocoder_mode, device=device)
     entry.inputs.copy_(wave)
     entry.key.copy_(torch.as_tensor(noise_key, dtype=torch.int64))
     return entry.program()
@@ -169,47 +156,28 @@ def offline_convert(params: dict, wave, noise_key: tuple[int, int, int],
 def offline_convert_eager(params: dict, wave,
                           noise_key: tuple[int, int, int] | torch.Tensor,
                           cfg: Config, num_frames: int, use_sr: bool = True,
-                          use_neural_vocoder: bool = False,
-                          vocoder_mode: str | None = None, device=None
+                          vocoder_mode: str = "dsp", device=None
                           ) -> torch.Tensor:
     """:func:`offline_convert`'s body, run eagerly: the reference its
     replays are held to.  ``noise_key`` is (offset, stride, shift) or an
     int64 tensor [3] on ``device``."""
     device = resolve_device(device)
     _check_params(params, device)
-    mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+    voc = vocoder(vocoder_mode)
     dtype = compute_dtype(cfg)
     feat = analyze(_on(wave, device), num_frames, cfg.dsp)
-    if mode == "hifigan":
-        # the generator reads mc, ap and F0: no envelope, no SR
-        f0c, mc_c, ap = (torch.cat([x, x[-1:]]) for x in (
-            convert_f0_stats(feat.f0, params["f0_stats"]),
-            convert_mc(params["stage1"], feat.mc, feat.f0, cfg.acoustic,
-                       dtype), feat.ap))
-        return hifigan_vocode(params["vocoder_hifigan"], f0c, mc_c, ap,
-                              dtype)
-    conv = _extend_one_frame(convert_features(params, feat, cfg,
-                                              use_sr=use_sr))
-    noise = frame_noise(noise_key, 0, num_frames, noise_bins(cfg),
-                        like=conv.env)
-    if mode == "ddsp":
-        out, _ = neural_vocode(params["vocoder"], conv.f0, conv.env, conv.ap,
-                               conv.mc, noise, cfg.vocoder_nn, cfg.dsp,
-                               dtype=dtype)
-    elif mode == "wave":
-        out, _ = waveform_vocode(params["vocoder_wave"], conv.f0, conv.env,
-                                 conv.ap, conv.mc, noise, cfg.vocoder_wave,
-                                 cfg.dsp, dtype=dtype)
-    else:
-        out, _ = synthesize(conv.f0, conv.env, conv.ap, noise, cfg.dsp)
-    return out
+    conv = extend_one_frame(convert_features(
+        params, feat, cfg, use_sr, dtype, envelope=voc.reads_envelope))
+    return voc.offline(
+        params, cfg, conv,
+        lambda: frame_noise(noise_key, 0, num_frames, noise_bins(cfg),
+                            like=conv.env), dtype)
 
 
 @torch.no_grad()
 def offline_convert_io(params: dict, wave_in, noise_key: tuple[int, int, int],
                        cfg: Config, use_sr: bool = True,
-                       use_neural_vocoder: bool = False,
-                       vocoder_mode: str | None = None, device=None
+                       vocoder_mode: str = "dsp", device=None
                        ) -> torch.Tensor:
     """Client-rate offline conversion: wave at ``cfg.dsp.in_rate`` ->
     converted wave at ``cfg.dsp.out_rate``, through the resample plans the
@@ -217,15 +185,13 @@ def offline_convert_io(params: dict, wave_in, noise_key: tuple[int, int, int],
     Identity plans make this exactly :func:`offline_convert`, which
     converts between the two eager resample edges."""
     device = resolve_device(device)
-    mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
-    geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
-    x = resample_signal(_on(wave_in, device),
-                        input_plan(cfg.dsp, geo.chunk_samples))
+    S = cfg.streaming.chunk_samples(cfg.dsp)
+    x = resample_signal(_on(wave_in, device), input_plan(cfg.dsp, S))
     hop = cfg.dsp.hop
     F = x.shape[0] // hop
     y = offline_convert(params, x[: F * hop], noise_key, cfg, F, use_sr,
-                        vocoder_mode=mode, device=device)
-    return resample_signal(y, output_plan(cfg.dsp, geo.chunk_samples))
+                        vocoder_mode=vocoder_mode, device=device)
+    return resample_signal(y, output_plan(cfg.dsp, S))
 
 
 def offline_analyze(wave, cfg: Config, num_frames: int, device=None
@@ -293,8 +259,7 @@ def offline_synthesize_eager(feat: AcousticFeature,
     """:func:`offline_synthesize`'s body, run eagerly: the reference its
     replays are held to.  ``noise_key`` is (offset, stride, shift) or an
     int64 tensor [3] on the features' device."""
-    ext = _extend_one_frame(feat)
-    noise = frame_noise(noise_key, 0, feat.f0.shape[0], noise_bins(cfg),
-                        like=ext.env)
-    out, _ = synthesize(ext.f0, ext.env, ext.ap, noise, cfg.dsp)
-    return out
+    ext = extend_one_frame(feat)
+    # the dsp mode's synthesis reads no params and runs no model
+    return vocoder("dsp").offline(None, cfg, ext, lambda: frame_noise(
+        noise_key, 0, feat.f0.shape[0], noise_bins(cfg), like=ext.env), None)

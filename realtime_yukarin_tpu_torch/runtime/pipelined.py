@@ -69,14 +69,13 @@ class PipelinedStream:
     """
 
     def __init__(self, params: dict, cfg: Config, use_sr: bool = True,
-                 use_neural_vocoder: bool = False, seed: int = 0,
-                 depth: int = 2, ring_seconds: float = 4.0,
-                 vocoder_mode: str | None = None, device=None):
+                 seed: int = 0, depth: int = 2, ring_seconds: float = 4.0,
+                 vocoder_mode: str = "dsp", device=None):
         # the step's program: built (kernels compiled, step captured on
         # CUDA) here, before the dispatch thread starts
         self._stream = VoiceChangerStream(
-            params, cfg, use_sr, use_neural_vocoder, seed=seed,
-            vocoder_mode=vocoder_mode, device=device)
+            params, cfg, use_sr, seed=seed, vocoder_mode=vocoder_mode,
+            device=device)
         self.device = self._stream.device
         self.program = self._stream.program
         self._depth = max(1, depth)

@@ -114,16 +114,15 @@ class SocketVoiceServer:
     def __init__(self, params: dict, cfg: Config, host: str = "127.0.0.1",
                  port: int = 0, num_streams: int = 8,
                  realtime_factor: float = 0.0, use_sr: bool = True,
-                 use_neural_vocoder: bool = False, ring_seconds: float = 8.0,
-                 seed: int = 0, sock_sndbuf: int | None = None,
-                 vocoder_mode: str | None = None, device=None, mesh=None):
+                 ring_seconds: float = 8.0, seed: int = 0,
+                 sock_sndbuf: int | None = None, vocoder_mode: str = "dsp",
+                 device=None, mesh=None):
         self._cfg = cfg
         self._sndbuf = sock_sndbuf    # bound kernel memory per client; small
         #                               values surface ring backpressure fast
         self._server = BatchedServer(params, cfg, num_streams=num_streams,
-                                     use_sr=use_sr,
-                                     use_neural_vocoder=use_neural_vocoder,
-                                     seed=seed, vocoder_mode=vocoder_mode,
+                                     use_sr=use_sr, seed=seed,
+                                     vocoder_mode=vocoder_mode,
                                      device=device, mesh=mesh)
         self.device = self._server.device
         self.program = self._server.program

@@ -3,17 +3,14 @@
 One chunk in, one chunk out: the client chunk resampled to the internal
 rate, analysis of the newly final frames (the rest come from the carry's
 caches), stage-1 conversion through per-layer conv caches, F0 moment
-matching, mel-cepstrum decode, stage-2 super-resolution, then one of the
-four synthesis stages (the DSP renderer, the DDSP control net over the
-same renderer, the wave decoder's render + learned residual, or the
-HiFi-GAN generator over its halo) and the output resampled to the client
-rate.  The three hand-written CUDA kernels
-of this path (power spectrum, envelope cepstrum, harmonic bank) run once
-per step each.  The step is a plain eager function of (params, carry,
-chunk) returning (output, next carry), the counterpart of JAX's
-``streaming_step_impl``; the entry points run it as one captured device
-program per chunk over a carry updated in place
-(``streaming/program.py``).
+matching, mel-cepstrum decode, stage-2 super-resolution, then the vocoder
+mode's synthesis (``models/vocoders.py``) and the output resampled to the
+client rate.  The three hand-written CUDA kernels of this path (power
+spectrum, envelope cepstrum, harmonic bank) run once per step each.  The
+step is a plain eager function of (params, carry, chunk) returning
+(output, next carry), the counterpart of JAX's ``streaming_step_impl``;
+the entry points run it as one captured device program per chunk over a
+carry updated in place (``streaming/program.py``).
 
 Noise determinism: each frame's gaussian drivers are a fixed function of
 the global frame index (a table row read through a per-stream
@@ -28,23 +25,18 @@ import functools
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import (Config, resolve_vocoder_mode,
-                                               runs_sr)
+from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.dsp.envelope import power_spectrogram
 from realtime_yukarin_tpu_torch.dsp.f0 import (f0_raw_and_candidates,
                                                viterbi_snap, voicing_revision)
 from realtime_yukarin_tpu_torch.dsp.framing import median3
 from realtime_yukarin_tpu_torch.dsp.mcep import decode_mcep
 from realtime_yukarin_tpu_torch.dsp.resample import resample_chunk
-from realtime_yukarin_tpu_torch.dsp.synthesis import render, synthesize
 from realtime_yukarin_tpu_torch.dsp.world import analyze_given_f0
 from realtime_yukarin_tpu_torch.models.acoustic import convert_mc_streamed
 from realtime_yukarin_tpu_torch.models.super_resolution import (
     refine_envelope)
-from realtime_yukarin_tpu_torch.models.vocoder_hifigan import hifigan_vocode
-from realtime_yukarin_tpu_torch.models.vocoder_nn import (
-    neural_vocoder_controls)
-from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
+from realtime_yukarin_tpu_torch.models.vocoders import vocoder
 from realtime_yukarin_tpu_torch.models.voice_changer import (compute_dtype,
                                                              convert_f0_stats)
 from realtime_yukarin_tpu_torch.ops.dft import device_const
@@ -183,20 +175,17 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     an int64 tensor [..., 3] (one per stream).  Returns converted PCM
     [..., chunk_out_samples] at ``cfg.dsp.out_rate`` and the next carry.
     Every stream's frames go through each kernel together: one launch per
-    kernel per step, whatever N.  ``vocoder_mode`` ("dsp", "ddsp", "wave"
-    or "hifigan") must be the one the carry was made for
+    kernel per step, whatever N.  ``vocoder_mode`` (a key of
+    ``models.vocoders.VOCODERS``) must be the one the carry was made for
     (:func:`init_stream`).  Each stage begins with its marker on the
     device (``utils/profiling.py``): ``resample_in``, ``analysis``,
-    ``stage1``, ``sr`` (also without SR), ``render`` and
-    ``resample_out``.  The hifigan mode decodes no envelope and runs no
-    SR (:func:`~realtime_yukarin_tpu_torch.config.runs_sr`): the
-    generator reads mc, ap and F0 alone; ``vocoder``, ``vocoder_s1`` ...
-    (one per upsampling stage) and ``vocoder`` again (conv_post) take the
-    place of ``sr`` and ``render``.
+    ``stage1``, ``sr`` (also without SR; not in a mode that reads no
+    envelope, which decodes none and runs no SR), the mode's synthesis
+    markers (``render``, or the generator's) and ``resample_out``.
     """
-    mode = resolve_vocoder_mode(False, vocoder_mode)
-    use_sr = runs_sr(use_sr, mode)
-    geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
+    voc = vocoder(vocoder_mode)
+    use_sr = use_sr and voc.reads_envelope
+    geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=vocoder_mode)
     dsp = cfg.dsp
     hop = dsp.hop
     Fc = geo.chunk_frames
@@ -247,11 +236,9 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     # 3. convert: stage 1 advances by the Fc newly final input frames via
     # its per-layer caches; its outputs (lagging c1 frames) extend the
     # carried stage-1 output cache to the range SR + synthesis need.  The
-    # neural vocoders read ctx_v more frames on each side (their conv
-    # halo): Lv rows from frame s.
-    ctx_v = {"ddsp": cfg.vocoder_nn.context_frames,
-             "wave": cfg.vocoder_wave.context_frames,
-             "hifigan": cfg.vocoder_hifigan.context_frames}.get(mode, 0)
+    # vocoder nets read ctx_v more frames on each side (their conv halo):
+    # Lv rows from frame s.
+    ctx_v = voc.context_frames(cfg)
     ctx_sr = cfg.super_resolution.context_frames if use_sr else 0
     c1 = cfg.acoustic.context_frames
     dtype = compute_dtype(cfg)
@@ -272,44 +259,21 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     need = slice(ctx_sr, ctx_sr + Lv)
     f0v, mcv = f0c_need[..., need], mc_c_need[..., need, :]
     apv = ap_all[..., s: s + Lv, :]
-    if mode != "hifigan":
+    envv = None
+    if voc.reads_envelope:
         env_low = decode_mcep(mc_c_need, dsp)
         profiling.mark("sr", like)
-        if use_sr:
-            env_mid = refine_envelope(params["stage2"], env_low,
-                                      cfg.super_resolution, dsp, dtype)
-        else:
-            env_mid = env_low
+        env_mid = (refine_envelope(params["stage2"], env_low,
+                                   cfg.super_resolution, dsp, dtype)
+                   if use_sr else env_low)
         envv = env_mid[..., need, :]
 
-    # 4. synthesize Fc frames: the generator over its halo (it keeps no
-    # state), or a renderer with position-deterministic noise
-    if mode == "hifigan":
-        profiling.mark("vocoder", like)
-        out = hifigan_vocode(params["vocoder_hifigan"], f0v, mcv, apv,
-                             dtype, out_ctx=ctx_v,
-                             mark=lambda stage: profiling.mark(stage, like))
-        synth_carry = carry.synth
-    else:
-        profiling.mark("render", like)
-        noise = frame_noise(noise_key, carry.frame_pos, Fc,
-                            noise_bins(cfg), like=buf)
-        if mode == "ddsp":
-            amps, nmag, f0f, voiced = neural_vocoder_controls(
-                params["vocoder"], f0v, envv, apv, mcv, cfg.vocoder_nn, dsp,
-                dtype)
-            rows = slice(ctx_v, ctx_v + L)
-            out, synth_carry = render(
-                amps[..., rows, :], nmag[..., ctx_v: ctx_v + L - 1, :],
-                f0f[..., rows], voiced[..., rows], noise, dsp, carry.synth)
-        elif mode == "wave":
-            out, synth_carry = waveform_vocode(
-                params["vocoder_wave"], f0v, envv, apv, mcv, noise,
-                cfg.vocoder_wave, dsp, carry.synth, out_ctx=ctx_v,
-                dtype=dtype)
-        else:
-            out, synth_carry = synthesize(f0v, envv, apv, noise, dsp,
-                                          carry.synth)
+    # 4. synthesize Fc frames: a renderer with position-deterministic
+    # noise, or a net over its halo
+    out, synth_carry = voc.stream(
+        params, cfg, f0v, envv, apv, mcv, carry.synth,
+        lambda: frame_noise(noise_key, carry.frame_pos, Fc, noise_bins(cfg),
+                            like=buf), dtype, like)
 
     # 5. resample the converted chunk to the client output rate
     profiling.mark("resample_out", like)
@@ -329,13 +293,10 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
 
 
 def init_stream(params: dict, cfg: Config, use_sr: bool = True,
-                use_neural_vocoder: bool = False,
-                vocoder_mode: str | None = None, device=None
+                vocoder_mode: str = "dsp", device=None
                 ) -> tuple[StreamCarry, StreamGeometry]:
     """Initial carry (on ``device``, ``cuda`` by default) and geometry for
-    the vocoder mode ``resolve_vocoder_mode(use_neural_vocoder,
-    vocoder_mode)`` ("dsp", "ddsp", "wave" or "hifigan")."""
-    mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+    ``vocoder_mode`` (a key of ``models.vocoders.VOCODERS``)."""
     device = resolve_device(device)
-    geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
-    return StreamCarry.init(cfg, geo, params, device, vocoder_mode=mode), geo
+    geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=vocoder_mode)
+    return StreamCarry.init(cfg, geo, params, device, vocoder_mode), geo

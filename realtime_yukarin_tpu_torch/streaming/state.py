@@ -11,10 +11,9 @@ arithmetic derived from the Config:
   Fn     analysis frames per step:    Fc + 2*mctx + 1
   L_buf  wave buffer samples:         (Fc + 2*mctx + ah)*hop + AH
 
-(mctx also holds the neural vocoder's halo in the ddsp, wave and hifigan
-modes.  The hifigan mode runs no SR (``config.runs_sr``), so its mctx
-holds the generator's 21 frames at its published widths in place of SR's
-4: D is 42 frames, 85 ms more than the dsp mode's 25.)
+(mctx also holds the vocoder net's halo, ``models/vocoders.py``; in the
+hifigan mode the generator's 21 frames take SR's 4: D is 42 frames, 85 ms
+more than the dsp mode's 25.)
 Step k consumes input chunk k and emits output frames [k*Fc - D,
 (k+1)*Fc - D).  Client rates other than the internal one go through the
 polyphase resamplers of :func:`input_plan` / :func:`output_plan` at both
@@ -27,12 +26,12 @@ import dataclasses
 
 import torch
 
-from realtime_yukarin_tpu_torch.config import (Config, DspConfig,
-                                               resolve_vocoder_mode, runs_sr)
+from realtime_yukarin_tpu_torch.config import Config, DspConfig
 from realtime_yukarin_tpu_torch.dsp import primitives as prim
 from realtime_yukarin_tpu_torch.dsp import resample
 from realtime_yukarin_tpu_torch.dsp.f0 import _BIG as _VITERBI_BIG
 from realtime_yukarin_tpu_torch.dsp.synthesis import SynthCarry, WaveCarry
+from realtime_yukarin_tpu_torch.models.vocoders import vocoder
 
 
 def input_plan(dsp: DspConfig, chunk_samples: int) -> resample.ResamplePlan:
@@ -78,25 +77,18 @@ class StreamGeometry:
 
     @classmethod
     def from_config(cls, cfg: Config, use_sr: bool = True,
-                    use_neural_vocoder: bool = False,
-                    vocoder_mode: str | None = None) -> "StreamGeometry":
+                    vocoder_mode: str = "dsp") -> "StreamGeometry":
         """Geometry of one streaming configuration; the vocoder mode comes
-        from the arguments (``resolve_vocoder_mode``), as in the JAX
-        package, not from ``cfg.vocoder_mode``."""
-        mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+        from the argument, as in the JAX package, not from
+        ``cfg.vocoder_mode``."""
+        voc = vocoder(vocoder_mode)
         dsp = cfg.dsp
         hop = dsp.hop
         Fc = cfg.streaming.chunk_frames(dsp)
         E = dsp.f0_edge_frames
-        mctx = cfg.acoustic.context_frames + E
-        if runs_sr(use_sr, mode):
+        mctx = cfg.acoustic.context_frames + E + voc.context_frames(cfg)
+        if use_sr and voc.reads_envelope:
             mctx += cfg.super_resolution.context_frames
-        if mode == "ddsp":
-            mctx += cfg.vocoder_nn.context_frames
-        elif mode == "wave":
-            mctx += cfg.vocoder_wave.context_frames
-        elif mode == "hifigan":
-            mctx += cfg.vocoder_hifigan.context_frames
         AH = max(dsp.fft_size // 2, (dsp.f0_frame_len + 1) // 2,
                  (dsp.voicing_energy_win + 1) // 2)
         ah_frames = -(-AH // hop)
@@ -152,9 +144,7 @@ class StreamCarry:
     window was complete never changes."""
 
     wave_buf: torch.Tensor      # [buf_samples] rolling input window
-    synth: SynthCarry | WaveCarry | None  # synthesizer state (WaveCarry
-    #                                in wave mode; None in hifigan mode,
-    #                                whose generator recomputes its halo)
+    synth: SynthCarry | WaveCarry | None  # the mode's ``init_synth``
     frame_pos: torch.Tensor     # [] int64 global index of the next output
     #                             frame
     f0_cache: torch.Tensor      # [C] final (snapped+refined) F0 per frame
@@ -189,16 +179,9 @@ class StreamCarry:
             compute_dtype(cfg))
         mc_c_row = sil.mc[0] + res_row
         K = cfg.dsp.f0_cand_k
-        if vocoder_mode == "wave":
-            synth = WaveCarry.zeros(cfg.dsp, device, dt,
-                                    cfg.vocoder_wave.phase_fractional)
-        elif vocoder_mode == "hifigan":
-            synth = None
-        else:
-            synth = SynthCarry.zeros(cfg.dsp, device, dt)
         return cls(
             wave_buf=zeros,
-            synth=synth,
+            synth=vocoder(vocoder_mode).init_synth(cfg, device),
             frame_pos=torch.tensor(-geo.delay_frames, dtype=torch.int64,
                                    device=device),
             f0_cache=sil.f0, mc_cache=sil.mc, ap_cache=sil.ap,

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from realtime_yukarin_tpu_torch.config import Config, resolve_vocoder_mode
+from realtime_yukarin_tpu_torch.config import Config
 from realtime_yukarin_tpu_torch.models.voice_changer import params_to
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     init_stream, noise_key_from_seed, resolve_device, streaming_step)
@@ -27,7 +27,7 @@ class VoiceChangerStream:
     ``"cpu"``; no fallback).  Input is PCM at ``cfg.dsp.in_rate``, output
     at ``cfg.dsp.out_rate``, delayed by ``latency_samples``; call
     ``flush()`` at the end of input to drain the tail.  The synthesis
-    stage is ``resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)``.
+    stage is ``vocoder_mode`` (a key of ``models.vocoders.VOCODERS``).
     The noise permutation comes from ``seed`` (the same noise as the JAX
     package's ``jax.random.key(seed)``) unless an explicit ``noise_key``
     (offset, stride, shift) is given.  On CUDA the constructor captures the
@@ -35,14 +35,13 @@ class VoiceChangerStream:
     """
 
     def __init__(self, params: dict, cfg: Config, use_sr: bool = True,
-                 use_neural_vocoder: bool = False, seed: int = 0,
-                 noise_key: tuple[int, int, int] | None = None,
-                 vocoder_mode: str | None = None, device=None):
+                 seed: int = 0, noise_key: tuple[int, int, int] | None = None,
+                 vocoder_mode: str = "dsp", device=None):
         self.device = resolve_device(device)
         self._params = params_to(params, self.device)
         self._cfg = cfg
         self._use_sr = use_sr
-        self._mode = resolve_vocoder_mode(use_neural_vocoder, vocoder_mode)
+        self._mode = vocoder_mode
         self._noise_key = torch.tensor(
             noise_key if noise_key is not None else noise_key_from_seed(seed),
             dtype=torch.int64, device=self.device)

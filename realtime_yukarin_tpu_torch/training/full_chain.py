@@ -30,9 +30,11 @@ from realtime_yukarin_tpu_torch.dsp import primitives as prim
 from realtime_yukarin_tpu_torch.dsp.world import AcousticFeature
 from realtime_yukarin_tpu_torch.models.vocoder_nn import neural_vocode
 from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
+from realtime_yukarin_tpu_torch.models.vocoders import vocoder
 from realtime_yukarin_tpu_torch.models.voice_changer import (
     convert_features, params_to)
-from realtime_yukarin_tpu_torch.pipeline import offline_analyze
+from realtime_yukarin_tpu_torch.pipeline import (extend_one_frame,
+                                                offline_analyze)
 from realtime_yukarin_tpu_torch.streaming.pipeline import (
     frame_noise, noise_key_from_seed, resolve_device)
 from realtime_yukarin_tpu_torch.streaming.state import (StreamGeometry,
@@ -136,21 +138,6 @@ def _converted_on_target_timeline(params: dict, cfg: Config, d: dict,
                            mc=conv.mc[idx])
 
 
-def _vocode(params: dict, cfg: Config, feat: AcousticFeature,
-            noise: torch.Tensor, mode: str) -> torch.Tensor:
-    def ext(a):
-        return torch.cat([a, a[-1:]])
-
-    args = (ext(feat.f0), ext(feat.env), ext(feat.ap), ext(feat.mc), noise)
-    if mode == "ddsp":
-        w, _ = neural_vocode(params["vocoder"], *args, cfg.vocoder_nn,
-                             cfg.dsp)
-    else:
-        w, _ = waveform_vocode(params["vocoder_wave"], *args,
-                               cfg.vocoder_wave, cfg.dsp)
-    return w
-
-
 def conditioning_gap(params: dict, cfg: Config, ho: dict, seed: int = 11,
                      device=None) -> dict:
     """Each neural vocoder's loss against the real target waveform when
@@ -171,13 +158,13 @@ def conditioning_gap(params: dict, cfg: Config, ho: dict, seed: int = 11,
                          ap=_on(ho["ap_voc"], device),
                          mc=_on(ho["mc_voc"], device))
     cw = _converted_on_target_timeline(params, cfg, ho, device)
+    feats = [extend_one_frame(f) for f in (gt, cw)]
     out = {}
     with torch.no_grad():
         for mode in ("ddsp", "wave"):
-            a = float(losses.multi_resolution_stft(
-                _vocode(params, cfg, gt, noise, mode), wave_real))
-            c = float(losses.multi_resolution_stft(
-                _vocode(params, cfg, cw, noise, mode), wave_real))
+            a, c = (float(losses.multi_resolution_stft(vocoder(mode).offline(
+                params, cfg, f, lambda: noise, torch.float32), wave_real))
+                for f in feats)
             out[mode] = {"gt": a, "converted": c, "ratio": c / a}
     return out
 

@@ -177,7 +177,7 @@ def test_offline_entry_points_need_params_on_their_device(setup):
 # Streamed == offline within the port (tests/test_streaming.py's gates)
 # ---------------------------------------------------------------------------
 
-def _stream_full(params, cfg, x, use_sr=True, mode=None):
+def _stream_full(params, cfg, x, use_sr=True, mode="dsp"):
     """Push x through VoiceChangerStream chunk by chunk, flush; return the
     output on the input timeline and the stream."""
     stream = VoiceChangerStream(params, cfg, use_sr, seed=SEED,
@@ -194,7 +194,7 @@ def _stream_full(params, cfg, x, use_sr=True, mode=None):
     return y[lat: lat + len(x)], stream
 
 
-def _streamed_vs_offline(tp, cfg, kind, seconds, use_sr=True, mode=None,
+def _streamed_vs_offline(tp, cfg, kind, seconds, use_sr=True, mode="dsp",
                          margin=2, atol=2e-3):
     x = make_test_signal(kind, seconds, cfg.dsp.sample_rate
                          ).astype(np.float32)

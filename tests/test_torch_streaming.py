@@ -47,17 +47,17 @@ def _rates(cfg, rate_in, rate_out):
 def _geometry_cases():
     base = Config()
     return {
-        "default_sr": (base, True, None),
-        "default_no_sr": (base, False, None),
+        "default_sr": (base, True, "dsp"),
+        "default_no_sr": (base, False, "dsp"),
         "40ms": (dataclasses.replace(
-            base, streaming=StreamingConfig(chunk_ms=40.0)), True, None),
+            base, streaming=StreamingConfig(chunk_ms=40.0)), True, "dsp"),
         "causal_snap_20ms": (dataclasses.replace(
             base, dsp=dataclasses.replace(base.dsp, f0_snap_halo=0,
                                           f0_snap_left=6),
-            streaming=StreamingConfig(chunk_ms=20.0)), True, None),
+            streaming=StreamingConfig(chunk_ms=20.0)), True, "dsp"),
         "ddsp": (base, True, "ddsp"),
         "wave_no_sr": (base, False, "wave"),
-        "16k_in_48k_out": (_rates(base, 16000, 48000), True, None),
+        "16k_in_48k_out": (_rates(base, 16000, 48000), True, "dsp"),
         "48k_in_8k_out_40ms_wave": (dataclasses.replace(
             _rates(base, 48000, 8000),
             streaming=StreamingConfig(chunk_ms=40.0)), True, "wave"),
