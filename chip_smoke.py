@@ -46,12 +46,13 @@ non-zero):
    10,239.  Then the HiFi-GAN generator's fused tail
    (``csrc/hifigan_tail.cu``) in bfloat16 at the shapes a streamed step of
    the published generator gives it at HIFIGAN_LANES lanes
-   (``hifigan_shapes``: each lane's rows from ``StreamGeometry``):
-   conv_pre's at 512 channels, then at each of the four upsampling stages
-   the upsample's (cropped at the odd strides 5 and 3, not at 4 and 2) and
-   each other mode's: bit for bit against its plain version, its device
-   time per launch beside the plain version's (``device_ms``), its byte
-   bound, and a stage's 19 tails together;
+   (``hifigan_shapes``: each lane's rows from ``StreamGeometry``, each
+   layer's from ``VocoderHiFiGANConfig.cone``): conv_pre's at 512
+   channels, then at each of the four upsampling stages the upsample's and
+   the mean's (each keeping a window of its rows) and each other mode's:
+   bit for bit against its plain version, its device time per launch
+   beside the plain version's (``device_ms``), its byte bound, and a
+   stage's 19 tails together;
 4. main path: ``VoiceChangerStream(device="cuda")`` at the default Config
    (full width, bf16 models, seeded perturbed weights) on 3 s of a seeded
    voiced/unvoiced signal in 100 ms chunks, then ``flush()``; checks the
@@ -495,8 +496,8 @@ def launch_shape(name: str, args: tuple) -> tuple:
     """The shape a kernel's launcher arguments give it (ops/analysis.py,
     ops/harmonic_bank.py, ops/hifigan_tail.py): (R, K) for the analysis
     kernels, (R, H, hop) for the bank, (R, H, hop, whether d_phi and d_frac
-    are computed) for its backward, (rows, T, C, mode, y's samples a row)
-    for the generator's tail (y's are T + 1 where the crop applies)."""
+    are computed) for its backward, (rows, T, C, mode, y's samples a row,
+    the first one kept) for the generator's tail."""
     if name == "power_spectrum":
         return int(args[3]), int(args[5])
     if name == "envelope_cepstrum":
@@ -505,7 +506,8 @@ def launch_shape(name: str, args: tuple) -> tuple:
         return tuple(int(a) for a in args[5:8])
     if name == "hifigan_tail":
         rows, length, C = (int(a) for a in args[6:9])
-        return rows, length, C, int(args[10]), int(args[9]) // C
+        return (rows, length, C, int(args[11]), int(args[9]) // C,
+                int(args[10]))
     return tuple(int(a) for a in args[9:12]) + (args[7] is not None,)
 
 
@@ -606,22 +608,31 @@ def designs_phase(cfg, dev, rng) -> None:
 
 
 def hifigan_shapes(cfg) -> list[tuple]:
-    """(rows, samples a row, channels, samples a row of the upsample's
-    output) at conv_pre and after each upsampling stage of ``cfg``'s
-    generator in a streamed step at HIFIGAN_LANES lanes: each lane's rows
-    are the chunk's frames, one more, and the generator's halo on each
-    side (``streaming/pipeline.py``'s Lv); a transposed conv of odd stride
-    gives one sample a row past the kept ones (the crop)."""
+    """(rows, samples a row kept, channels, y's samples a row, the first
+    one kept) of each tail that keeps a window of its rows in a streamed
+    step of ``cfg``'s generator at HIFIGAN_LANES lanes: conv_pre's, then
+    per upsampling stage its upsample's and its mean's.  A lane's window is
+    the chunk's frames, one more, and the generator's halo on each side
+    (``streaming/pipeline.py``'s Lv); each layer runs over the rows the
+    kept samples depend on (``VocoderHiFiGANConfig.cone``): the upsample
+    keeps the stage's rows of its transposed conv's output, the stage's
+    other tails run over those rows whole, and its mean keeps the rows the
+    next conv reads."""
     from realtime_yukarin_tpu_torch.streaming.state import StreamGeometry
     h = cfg.vocoder_hifigan
     geo = StreamGeometry.from_config(cfg, vocoder_mode="hifigan")
     T = geo.chunk_frames + 1 + 2 * h.context_frames
-    shapes = [(HIFIGAN_LANES, T, h.upsample_initial_channel, T)]
+    x, *cone = h.cone(T, h.context_frames)
+    shapes = [(HIFIGAN_LANES, cone[0][1] - cone[0][0],
+               h.upsample_initial_channel, x[1] - x[0], cone[0][0] - x[0])]
     for i, (u, k) in enumerate(zip(h.upsample_rates,
                                    h.upsample_kernel_sizes)):
-        up = (T - 1) * u - 2 * ((k - u) // 2) + k
-        T *= u
-        shapes.append((HIFIGAN_LANES, T, h.channels(i), up))
+        (lo, hi), rows, out = cone[2 * i: 2 * i + 3]
+        up = (hi - lo - 1) * u - 2 * ((k - u) // 2) + k
+        n = rows[1] - rows[0]
+        shapes += [(HIFIGAN_LANES, n, h.channels(i), up, rows[0] - lo * u),
+                   (HIFIGAN_LANES, out[1] - out[0], h.channels(i), n,
+                    out[0] - rows[0])]
     return shapes
 
 
@@ -636,8 +647,8 @@ def hifigan_tails(cfg) -> int:
 def tail_phase(cfg, dev) -> tuple[dict, set]:
     """The generator's fused tail (``cfg``'s generator) in bfloat16 at
     ``hifigan_shapes``: conv_pre's act, then each of TAIL_CASES at each
-    upsampling stage, the upsample's y with the samples a row its
-    transposed conv gives: equal to the plain version bit for bit, device
+    upsampling stage, the upsample's and the mean's keeping their windows:
+    equal to the plain version bit for bit, device
     time per launch (``device_ms``) beside the plain version's, the byte
     bound (``hifigan_tail_cost`` over HBM bandwidth).  Prints a line per
     case and one per stage (its tails together); returns the kernels-line
@@ -650,7 +661,7 @@ def tail_phase(cfg, dev) -> tuple[dict, set]:
     def t(*shape):
         return torch.randn(shape, generator=g).bfloat16().to(dev)
 
-    def case(label, mode, with_acc, rows, T, C, Ty, bias, r, acc):
+    def case(label, mode, with_acc, rows, T, C, Ty, start, bias, r, acc):
         """One mode at one shape: its (kernel, plain, bound) ms."""
         y = t(rows, Ty, C)
         rr = r if mode in ("res", "sum", "mean") else None
@@ -659,7 +670,7 @@ def tail_phase(cfg, dev) -> tuple[dict, set]:
 
         def run(fn):
             a = acc.clone() if fresh else (acc if with_acc else None)
-            return fn(mode, y, bias, rr, a, 0.1, 3.0, T)
+            return fn(mode, y, bias, rr, a, 0.1, 3.0, T, start)
         same = all(torch.equal(a, b) for a, b in zip(
             run(ht.hifigan_tail), run(ht.hifigan_tail_plain)))
         torch.cuda.synchronize()
@@ -670,27 +681,29 @@ def tail_phase(cfg, dev) -> tuple[dict, set]:
         p_ms = device_ms(lambda: run(ht.hifigan_tail_plain), 10) - copy
         print(f"[kernel] hifigan_tail {label} {mode}"
               f"{' +sum' if with_acc else ''} ({rows}, {T}, {C}) from "
-              f"{Ty} a row, bf16: equal to plain {same} | device "
+              f"{Ty} a row at {start}, bf16: equal to plain {same} | device "
               f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
               f"{b_ms * 1e3:.2f} us (bytes; {100 * b_ms / k_ms:.1f}% of "
               f"it)")
         if not same:
             raise AssertionError(f"hifigan_tail {mode} at {(rows, T, C)} "
-                                 f"from {Ty} a row: kernel and plain "
-                                 f"version differ")
-        shapes.add((rows, T, C, ht.MODES.index(mode), Ty))
+                                 f"from {Ty} a row at {start}: kernel and "
+                                 f"plain version differ")
+        shapes.add((rows, T, C, ht.MODES.index(mode), Ty, start))
         return k_ms, p_ms, b_ms
 
-    (rows, T, C, _), *after = hifigan_shapes(cfg)
-    pre = case("conv_pre", "act", False, rows, T, C, T,
+    (rows, T, C, Ty, start), *after = hifigan_shapes(cfg)
+    pre = case("conv_pre", "act", False, rows, T, C, Ty, start,
                torch.randn(C, generator=g).to(dev), None, None)
-    for i, (rows, T, C, T_up) in enumerate(after):
+    for i, (up, mean) in enumerate(zip(after[::2], after[1::2])):
+        rows, T, C = up[:3]
         bias = torch.randn(C, generator=g).to(dev)
         r, acc = t(rows, T, C), t(rows, T, C)
         stage = dict(kernel=0.0, plain=0.0, bound=0.0)
         for mode, with_acc, count in TAIL_CASES:
-            ms = case(f"s{i + 1}", mode, with_acc, rows, T, C,
-                      T_up if mode == "up" else T, bias, r, acc)
+            window = {"up": up, "mean": mean}.get(mode, (rows, T, C, T, 0))
+            ms = case(f"s{i + 1}", mode, with_acc, rows, window[1], C,
+                      *window[3:], bias, r, acc)
             for key, m in zip(("kernel", "plain", "bound"), ms):
                 stage[key] += count * m
         print(f"[kernel] hifigan_tail s{i + 1}: a stage's "

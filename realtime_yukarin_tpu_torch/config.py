@@ -477,19 +477,52 @@ class VocoderHiFiGANConfig:
         """One-sided receptive field in frames: the input frames on either
         side of a frame that its output samples read, through every layer
         (conv_pre, each transposed conv and the widest resblock chain, and
-        conv_post), from the layer list alone."""
+        conv_post), from the layer list alone (:meth:`_walk` of frame 0's
+        samples, unclamped)."""
+        lo, hi = self._walk(0, self.samples_per_frame)[0]
+        return max(-lo, hi - 1)
+
+    def cone(self, T: int, out_ctx: int | None = None) -> tuple:
+        """The rows each layer boundary computes over a window of T frames
+        for the output samples kept: frames [out_ctx, T - out_ctx - 1)
+        (``models/vocoder_hifigan.py:hifigan_vocode``'s), or all T frames
+        for None.  Half-open (lo, hi) in the boundary's own samples, input
+        first: conv_pre's input, then per stage its transposed conv's
+        input (conv_pre's kept output or the last stage's) and its rows
+        (the transposed conv's cropped output, which the stage's resblocks
+        run over), then conv_post's input and the kept samples.  Each is
+        the rows the next one reads, clamped to the window's own (so the
+        whole window when every row is kept); a range not at the window's
+        edge holds, besides what is read on, the rows a SAME conv corrupts
+        at a slice's edge."""
+        hop = self.samples_per_frame
+        if out_ctx is None:
+            return self._walk(0, T * hop, T)
+        return self._walk(out_ctx * hop, (T - out_ctx - 1) * hop, T)
+
+    def _walk(self, lo: int, hi: int, T: int | None = None) -> tuple:
+        """:meth:`cone` of output samples [lo, hi), by walking the layer
+        list backward; unclamped for T None (an infinite window)."""
         reach = max(sum((d + 1) * (k - 1) // 2 for d in ds)   # the MRF
                     for k, ds in zip(self.resblock_kernel_sizes,
                                      self.resblock_dilation_sizes))
-        lo, hi = 0, self.samples_per_frame - 1   # frame 0's output samples
-        lo, hi = lo - 3, hi + 3                             # conv_post
+        n = None if T is None else T * self.samples_per_frame
+
+        def clamp(lo, hi):
+            return (lo, hi) if n is None else (max(lo, 0), min(hi, n))
+        ranges = [(lo, hi), clamp(lo - 3, hi + 3)]          # conv_post
         for u, k in reversed(list(zip(self.upsample_rates,
                                       self.upsample_kernel_sizes))):
-            lo, hi = lo - reach, hi + reach
+            lo, hi = ranges[-1]
+            ranges.append(clamp(lo - reach, hi + reach))    # the resblocks
+            lo, hi = ranges[-1]
+            n = None if n is None else n // u
             p = (k - u) // 2          # output o = i*u - p + j, 0 <= j < k
-            lo, hi = -(-(lo + p - k + 1) // u), (hi + p) // u
-        lo, hi = lo - 3, hi + 3                             # conv_pre
-        return max(-lo, hi)
+            ranges.append(clamp(-(-(lo + p - k + 1) // u),
+                                (hi - 1 + p) // u + 1))
+        lo, hi = ranges[-1]
+        ranges.append(clamp(lo - 3, hi + 3))                # conv_pre
+        return tuple(reversed(ranges))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,9 +11,7 @@
 // five modes (y the convolution's output, b its bias, r the residual, acc
 // the stage's resblock sum, lrelu(v) = v > 0 ? v : slope * v):
 //   ACT   out0 = lrelu(y + b)                        conv_pre, each c1 conv
-//   UP    out0 = y + b, out1 = lrelu(y + b)          each transposed conv;
-//         y may hold more samples a row than are kept (the crop of an
-//         odd-stride transposed conv's trailing sample): a row stride
+//   UP    out0 = y + b, out1 = lrelu(y + b)          each transposed conv
 //   RES   x = r + (y + b); out0 = x, out1 = lrelu(x) a c2 conv before a
 //                                                    resblock's last dilation
 //   SUM   out0 = [acc +] (r + (y + b))               the last dilation of a
@@ -23,6 +21,13 @@
 //                                                    resblock (slope 0.1
 //                                                    before an upsample, 0.01
 //                                                    before conv_post)
+// Every mode may keep a window of its operands' rows: `length` samples a
+// row from row `start` of y, r and acc, which share one row stride; the
+// outputs hold the window alone.  The generator keeps the rows of each
+// stage that the kept output samples depend on
+// (VocoderHiFiGANConfig.cone): conv_pre's ACT and each UP drop the rows
+// the stage does not run over (and an odd-stride transposed conv's
+// trailing sample), a stage's MEAN those the next conv does not read.
 // Arithmetic in float32 on bfloat16 (or float32) operands and a float32
 // bias, one rounding per stored value; no FMA can form (no product feeds a
 // sum), so the plain version's float32 ops give the same bits.
@@ -36,11 +41,12 @@
 //
 // Bound on an H100 (bytes / 3.35 TB/s; E = rows * T * C elements, 2 bytes
 // each in bfloat16): ACT 2E, UP 3E, RES 4E, SUM 3E (4E with acc), MEAN 3E
-// (4E with acc) elements moved, plus 4C bytes of bias.  At 256 lanes x 63
-// rows a stage's E is 20.6 M / 41.3 M / 62.0 M / 62.0 M (stages 1-4: C =
-// 256 / 128 / 64 / 32 at 315 / 1,260 / 3,780 / 7,560 samples a row), so a
-// stage's 19 tails (one UP, 9 ACT, 6 RES, 2 SUM, 1 MEAN) move 56 E
-// elements: 0.69 / 1.38 / 2.07 / 2.07 ms a tick, 6.2 ms in all.
+// (4E with acc) elements moved, plus 4C bytes of bias.  At 256 lanes of 63
+// frames a stage runs over 268 / 583 / 1,384 / 2,526 samples a row (stages
+// 1-4, C = 256 / 128 / 64 / 32; the whole window is 315 / 1,260 / 3,780 /
+// 7,560), E = 17.6 M / 19.1 M / 22.7 M / 20.7 M, so a stage's 19 tails
+// (one UP, 9 ACT, 6 RES, 2 SUM, 1 MEAN) move about 56 E elements: 0.59 /
+// 0.64 / 0.76 / 0.69 ms a tick, 2.7 ms in all.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,9 +113,9 @@ __device__ __forceinline__ float lrelu(float v, float slope) {
   return v > 0.0f ? v : v * slope;
 }
 
-// acc and out0 may be one tensor (SUM adds into the stage's sum in place):
-// neither is __restrict__; each element is read before it is written, by
-// the one thread that owns it.
+// acc and out0 may be one tensor (SUM adds into the stage's sum in place,
+// uncropped): neither is __restrict__; each element is read before it is
+// written, by the one thread that owns it.
 template <typename T, int MODE, bool ACC>
 __global__ void __launch_bounds__(MAX_THREADS)
     hifigan_tail_kernel(const T* __restrict__ y, const T* __restrict__ r,
@@ -154,7 +160,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
       continue;
     }
     float x[N];
-    V::load(r + o, x);
+    V::load(r + yo, x);
 #pragma unroll
     for (int j = 0; j < N; ++j) v[j] = x[j] + v[j];
     if (MODE == MODE_RES) {
@@ -166,7 +172,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
     if (ACC) {
       float a[N];
-      V::load(acc + o, a);
+      V::load(acc + yo, a);
 #pragma unroll
       for (int j = 0; j < N; ++j) v[j] = a[j] + v[j];
     }
@@ -243,24 +249,36 @@ cudaError_t dispatch(int mode, bool has_acc, const void* y, const void* r,
 
 }  // namespace
 
-// y [rows, y_row / C, C] (its first `length` samples a row kept), r, acc,
-// out0, out1 [rows, length, C]; bias [C] float32.  bf16: 1 for bfloat16
-// activations, 0 for float32.  acc may be null (SUM and MEAN without a
-// running sum), r and out1 null where the mode reads or writes none.
+// y, r, acc [rows, y_row / C, C] (`length` samples a row kept from row
+// `start`), out0, out1 [rows, length, C]; bias [C] float32.  bf16: 1 for
+// bfloat16 activations, 0 for float32.  acc may be null (SUM and MEAN
+// without a running sum), r and out1 null where the mode reads or writes
+// none; acc may be out0 only uncropped.
 extern "C" int hifigan_tail_forward(const void* y, const void* r,
                                     const void* acc, const void* bias,
                                     void* out0, void* out1, int rows,
-                                    int length, int C, int y_row, int mode,
-                                    int bf16, float slope, float divisor,
-                                    void* stream) {
+                                    int length, int C, int y_row, int start,
+                                    int mode, int bf16, float slope,
+                                    float divisor, void* stream) {
   const int N = bf16 ? 8 : 4;
-  if (rows < 0 || length < 0 || C <= 0 || C % 8 != 0 || y_row < length * C
-      || C / N > MAX_THREADS)
+  if (rows < 0 || length < 0 || start < 0 || C <= 0 || C % 8 != 0
+      || static_cast<long long>(y_row)
+             < static_cast<long long>(start + length) * C
+      || C / N > MAX_THREADS
+      || (acc == out0 && y_row != length * C))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long positions = static_cast<long long>(rows) * length;
   if (positions == 0) return 0;
   if (positions * C > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the window's first row: every operand read at the same offset
+  const size_t skip = static_cast<size_t>(start) * C * (bf16 ? 2 : 4);
+  const auto at = [skip](const void* p) {
+    return p == nullptr ? p : static_cast<const char*>(p) + skip;
+  };
+  y = at(y);
+  r = at(r);
+  acc = at(acc);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool has_acc = acc != nullptr;
   const cudaError_t err =

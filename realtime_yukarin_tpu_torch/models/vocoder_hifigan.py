@@ -21,6 +21,23 @@ and kernel 2u gives u·L + 1 samples; the trailing one is cropped, so every
 stage gives u samples a frame and frame t owns output samples
 [t·hop, (t + 1)·hop).
 
+A streamed step keeps the samples of its centre frames alone (the halo of
+``context_frames`` on each side is read, not kept), so each layer runs over
+the rows those samples depend on, no more: ``VocoderHiFiGANConfig.cone``
+walks the layer list backward from the kept samples, as ``context_frames``
+does, and clamps each range to the window's rows.  conv_pre runs over the
+input rows the cone reads, each transposed conv over the previous stage's
+rows that it reads, each stage's resblocks over its rows of that output,
+SAME-padded (the padding of a slice's edge reaches no row read on), and
+conv_post over the kept samples and its 3 taps each side: at the published
+widths and a 21-frame halo 268 / 583 / 1,384 / 2,526 rows of a window's
+315 / 1,260 / 3,780 / 7,560 at stages 1-4.  The tails keep those windows
+(conv_pre's act and each stage's up and mean, by a start row and a
+length), so no copy is made.  Without ``out_ctx`` the cone is the whole
+window; offline (``out_ctx`` 0) it leaves out only late rows of the last
+frame, whose samples are not kept.  The arithmetic of each kept sample is
+the whole window's.
+
 Channels-last inside: the activations are [B, T, C] from the frame-major
 input [..., T, D_in] to conv_post, and every convolution runs on a
 [B, C, 1, T] view of them whose memory is NHWC, against weights laid out
@@ -109,29 +126,36 @@ class ResBlock1(nn.Module):
 
 
 def _resblock(x: torch.Tensor, xa: torch.Tensor, layers: tuple,
-              dilations: tuple, acc: torch.Tensor | None, last: bool,
-              n: int, slope: float) -> torch.Tensor:
+              dilations: tuple, acc: torch.Tensor | None, n: int,
+              slope: float, keep: tuple | None) -> torch.Tensor:
     """One ResBlock1 over x (xa = lrelu(x, 0.1)), channels-last: its output
     added to the stage's sum ``acc`` (in place, or a new sum for the first
-    block), or, for the stage's ``last`` block, lrelu(sum / n, slope)."""
+    block), or, for the stage's last block (``keep``: the (start, length)
+    of the rows the next conv reads), lrelu(sum / n, slope) over those
+    rows."""
     for m, (d, (w1, b1, w2, b2)) in enumerate(zip(dilations, layers)):
         (t,) = hifigan_tail("act", _conv(xa, w1, d), b1, slope=LRELU_SLOPE)
         v = _conv(t, w2)
         if m < len(dilations) - 1:
             x, xa = hifigan_tail("res", v, b2, r=x, slope=LRELU_SLOPE)
-        elif last:
+        elif keep is not None:
+            start, length = keep
             return hifigan_tail("mean", v, b2, r=x, acc=acc, slope=slope,
-                                divisor=float(n))[0]
+                                divisor=float(n), start=start,
+                                length=length)[0]
         else:
             return hifigan_tail("sum", v, b2, r=x, acc=acc)[0]
 
 
 class HiFiGANGenerator(nn.Module):
-    """Conditioning [..., T, D_in] -> waveform [..., T * hop] (float32).
+    """Conditioning [..., T, D_in] -> waveform [..., T * hop] (float32), or
+    with ``out_ctx`` the samples of frames [out_ctx, T - out_ctx - 1)
+    alone (:func:`hifigan_vocode`'s), each layer run over the rows those
+    samples depend on (``VocoderHiFiGANConfig.cone``).
 
-    ``forward(x, dtype, mark)`` calls ``mark("vocoder_s<i>")`` before
-    upsampling stage i (1-based) and ``mark("vocoder")`` before conv_post:
-    the stage markers of ``utils/profiling.py``."""
+    ``forward(x, dtype, mark, out_ctx)`` calls ``mark("vocoder_s<i>")``
+    before upsampling stage i (1-based) and ``mark("vocoder")`` before
+    conv_post: the stage markers of ``utils/profiling.py``."""
 
     ZERO_INIT = ()
 
@@ -206,30 +230,42 @@ class HiFiGANGenerator(nn.Module):
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, dtype=torch.float32,
-                mark: Callable[[str], None] | None = None) -> torch.Tensor:
+                mark: Callable[[str], None] | None = None,
+                out_ctx: int | None = None) -> torch.Tensor:
         lead, (T, D) = x.shape[:-2], x.shape[-2:]
         mark = mark or (lambda stage: None)
         w = self.packed(dtype)
-        (a,) = hifigan_tail("act", _conv(x.reshape(-1, T, D).to(dtype),
-                                         w.pre[0]),
-                            w.pre[1], slope=LRELU_SLOPE)
+        # each tail keeps the next range's rows of its conv's output, from
+        # that range's first row less the first row the output holds
+        (lo, hi), *cone = self.cfg.cone(T, out_ctx)
+        (a,) = hifigan_tail("act", _conv(x.reshape(-1, T, D)[:, lo: hi]
+                                         .to(dtype), w.pre[0]),
+                            w.pre[1], slope=LRELU_SLOPE,
+                            start=cone[0][0] - lo, length=_rows(cone[0]))
         rates = self.cfg.upsample_rates
         n = len(self.cfg.resblock_kernel_sizes)
         for i, u in enumerate(rates):
             mark(f"vocoder_s{i + 1}")
-            T *= u
+            (lo, _), rows, out = cone[2 * i: 2 * i + 3]
             h, a = hifigan_tail("up", _conv_up(a, w.ups[i][0], u),
-                                w.ups[i][1], slope=LRELU_SLOPE, length=T)
+                                w.ups[i][1], slope=LRELU_SLOPE,
+                                start=rows[0] - lo * u, length=_rows(rows))
             slope = LRELU_SLOPE if i + 1 < len(rates) else POST_SLOPE
             acc = None
             for j, (layers, ds) in enumerate(zip(
                     w.blocks[i], self.cfg.resblock_dilation_sizes)):
-                acc = _resblock(h, a, layers, ds, acc, j == n - 1, n, slope)
+                keep = (out[0] - rows[0], _rows(out)) if j == n - 1 else None
+                acc = _resblock(h, a, layers, ds, acc, n, slope, keep)
             a = acc
         mark("vocoder")
-        y = _conv(a, w.post[0])
+        (lo, _), keep = cone[-2:]
+        y = _conv(a, w.post[0])[:, keep[0] - lo: keep[1] - lo]
         y = y.to(torch.promote_types(y.dtype, torch.float32)) + w.post[1]
-        return torch.tanh(y).reshape(*lead, T)
+        return torch.tanh(y).reshape(*lead, _rows(keep))
+
+
+def _rows(r: tuple) -> int:
+    return r[1] - r[0]
 
 
 def hifigan_vocode(net: HiFiGANGenerator, f0, mc, ap, dtype=torch.float32,
@@ -241,8 +277,4 @@ def hifigan_vocode(net: HiFiGANGenerator, f0, mc, ap, dtype=torch.float32,
     samples of frames [out_ctx, T - out_ctx - 1): rows are F + 1 +
     2·out_ctx (the renderer's F + 1 plus the halo on each side; 0
     offline).  Returns [..., F * hop]."""
-    F = f0.shape[-1] - 1 - 2 * out_ctx
-    hop = net.cfg.samples_per_frame
-    y = net(vocoder_inputs(f0, mc, ap), dtype, mark)
-    return y[..., out_ctx * hop: (out_ctx + F) * hop]
-
+    return net(vocoder_inputs(f0, mc, ap), dtype, mark, out_ctx)

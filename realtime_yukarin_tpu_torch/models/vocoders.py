@@ -105,14 +105,17 @@ VOCODERS: dict[str, Vocoder] = {
         init_synth=lambda cfg, device: WaveCarry.zeros(
             cfg.dsp, device, phase_fractional=cfg.vocoder_wave
             .phase_fractional)),
-    # the generator reads mc, ap and F0, recomputes its halo every step and
-    # has no layer split over a model group
+    # the generator reads mc, ap and F0, keeps no carry (each step reads
+    # its halo anew, every layer over the rows its kept samples depend on)
+    # and has no layer split over a model group
     "hifigan": Vocoder(
         context_frames=lambda cfg: cfg.vocoder_hifigan.context_frames,
         reads_envelope=False, init_synth=lambda cfg, device: None,
         vocode=_hifigan, splits=False,
         learned_calls=lambda params, cfg, x, L, dtype: {
-            "vocoder": None, HIFIGAN: (params[HIFIGAN], x, dtype)},
+            "vocoder": None, HIFIGAN: (
+                params[HIFIGAN], x, dtype, None,
+                cfg.vocoder_hifigan.context_frames)},
         net=(HIFIGAN, lambda cfg: HiFiGANGenerator(cfg.vocoder_hifigan,
                                                    cfg.dsp))),
 }

@@ -225,10 +225,11 @@ ENVELOPE_CEPSTRUM_WIDE = CudaKernel(
     computes="envelope_cepstrum")
 # the HiFi-GAN generator's fused tail between two convolutions
 # (ops/hifigan_tail.py): y, r, acc, bias, out0, out1, then rows, length, C,
-# y's row stride, the mode, bfloat16 or not, the slope and the divisor
+# the operands' row stride, the window's start row, the mode, bfloat16 or
+# not, the slope and the divisor
 HIFIGAN_TAIL = CudaKernel(
-    "hifigan_tail", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-                     _P))
+    "hifigan_tail", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                     _F, _P))
 KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM,
            HARMONIC_BANK_BWD, POWER_SPECTRUM_WIDE, ENVELOPE_CEPSTRUM_WIDE,
            HIFIGAN_TAIL)

@@ -9,11 +9,17 @@ result.  Five modes (``y`` the convolution's output, ``b`` its bias, ``r``
 the residual, ``acc`` the stage's resblock sum)::
 
     act   lrelu(y + b)                           conv_pre, each c1 conv
-    up    h = y + b, lrelu(h)                    each transposed conv, whose
-                                                 rows may be cropped
+    up    h = y + b, lrelu(h)                    each transposed conv
     res   x = r + (y + b), lrelu(x)              a c2 conv, not the last
     sum   [acc +] (r + (y + b))                  a resblock's last c2 conv
     mean  lrelu(([acc +] (r + (y + b))) / n)     the stage's last resblock's
+
+Every operand is [rows, Ty, C] and a pass may keep a window of its rows,
+``length`` of them from row ``start`` (all by default): the results are
+[rows, length, C].  The generator keeps each layer to the rows its kept
+samples depend on (``VocoderHiFiGANConfig.cone``): conv_pre's act and each
+upsample's up keep the rows the stage runs over, a stage's mean the rows
+the next conv reads.
 
 On CUDA tensors :func:`hifigan_tail` launches the kernel (bfloat16 or
 float32 activations, C a multiple of 8, 16-byte aligned) or raises; on CPU
@@ -25,8 +31,9 @@ they agree bit for bit.
 A cost count (``utils/cost.py``) sees each call as one launch of
 ``hifigan_tail`` at the shape (rows, length, C, the mode's index in
 :data:`MODES`, y's samples a row: more than ``length`` where the crop
-applies) with :func:`hifigan_tail_cost` (no FLOPs, as the count leaves out
-every elementwise op, and the bytes the kernel moves).
+applies, the window's start) with :func:`hifigan_tail_cost` (no FLOPs, as
+the count leaves out every elementwise op, and the bytes the kernel
+moves).
 """
 
 from __future__ import annotations
@@ -58,25 +65,26 @@ def _lrelu(v: torch.Tensor, slope: float) -> torch.Tensor:
 def hifigan_tail_plain(mode: str, y: torch.Tensor, bias: torch.Tensor,
                        r: torch.Tensor | None = None,
                        acc: torch.Tensor | None = None, slope: float = 0.1,
-                       divisor: float = 1.0, length: int | None = None
-                       ) -> tuple[torch.Tensor, ...]:
-    """The tail in ``mode`` by plain ops: y [rows, Ty, C] (its first
-    ``length`` samples a row kept; all by default), r and acc [rows,
-    length, C] in y's dtype, bias [C].  Returns (out0,) or (out0, out1),
-    [rows, length, C] in y's dtype; "sum" with ``acc`` writes into it and
-    returns it."""
+                       divisor: float = 1.0, length: int | None = None,
+                       start: int = 0) -> tuple[torch.Tensor, ...]:
+    """The tail in ``mode`` by plain ops: y, r and acc [rows, Ty, C] in one
+    dtype, ``length`` samples a row kept from ``start`` (all by default),
+    bias [C].  Returns (out0,) or (out0, out1), [rows, length, C] in y's
+    dtype; "sum" with ``acc`` and no crop writes into it and returns
+    it."""
     f = torch.promote_types(y.dtype, torch.float32)
-    length = y.shape[1] if length is None else length
-    v = y[:, :length].to(f) + bias.to(f)
+    length = y.shape[1] - start if length is None else length
+    rows = slice(start, start + length)
+    v = y[:, rows].to(f) + bias.to(f)
     if mode == "act":
         return (_lrelu(v, slope).to(y.dtype),)
     if mode == "up":
         return v.to(y.dtype), _lrelu(v, slope).to(y.dtype)
-    v = r.to(f) + v
+    v = r[:, rows].to(f) + v
     if mode == "res":
         return v.to(y.dtype), _lrelu(v, slope).to(y.dtype)
     if acc is not None:
-        v = acc.to(f) + v
+        v = acc[:, rows].to(f) + v
     if mode == "mean":
         return (_lrelu(v / _scalar(divisor, v), slope).to(y.dtype),)
     if acc is not None:
@@ -116,8 +124,8 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device
 def hifigan_tail(mode: str, y: torch.Tensor, bias: torch.Tensor,
                  r: torch.Tensor | None = None,
                  acc: torch.Tensor | None = None, slope: float = 0.1,
-                 divisor: float = 1.0, length: int | None = None
-                 ) -> tuple[torch.Tensor, ...]:
+                 divisor: float = 1.0, length: int | None = None,
+                 start: int = 0) -> tuple[torch.Tensor, ...]:
     """The tail in ``mode`` (:func:`hifigan_tail_plain`'s arguments and
     results): the kernel on CUDA tensors, the plain version on CPU
     tensors."""
@@ -128,38 +136,42 @@ def hifigan_tail(mode: str, y: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"hifigan_tail: y must be [rows, T, C], got "
                          f"{tuple(y.shape)}")
     rows, Ty, C = y.shape
-    length = Ty if length is None else length
-    if not 0 <= length <= Ty:
-        raise ValueError(f"hifigan_tail: length {length} outside [0, {Ty}]")
+    length = Ty - start if length is None else length
+    if not (0 <= start and 0 <= length and start + length <= Ty):
+        raise ValueError(f"hifigan_tail: rows [{start}, {start + length}) "
+                         f"outside [0, {Ty}]")
     dev = y.device
     _check("y", y, (rows, Ty, C), y.dtype, dev)
     _check("bias", bias, (C,), torch.promote_types(y.dtype, torch.float32),
            dev)
     if mode in _READS_R:
-        _check("r", r, (rows, length, C), y.dtype, dev)
+        _check("r", r, (rows, Ty, C), y.dtype, dev)
     elif r is not None:
         raise ValueError(f"hifigan_tail: mode {mode!r} reads no residual")
     if acc is not None:
         if mode not in ("sum", "mean"):
             raise ValueError(f"hifigan_tail: mode {mode!r} reads no sum")
-        _check("acc", acc, (rows, length, C), y.dtype, dev)
+        _check("acc", acc, (rows, Ty, C), y.dtype, dev)
+        if mode == "sum" and length != Ty:
+            raise ValueError("hifigan_tail: \"sum\" adds into acc in "
+                             "place, which a crop cannot")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"hifigan_tail: no kernel for device {dev}")
     with cost.kernel("hifigan_tail",
-                     (rows, length, C, MODES.index(mode), Ty),
+                     (rows, length, C, MODES.index(mode), Ty, start),
                      *hifigan_tail_cost(mode, rows, length, C,
                                         y.element_size(), acc is not None)):
         if dev.type == "cpu":
             return hifigan_tail_plain(mode, y, bias, r, acc, slope, divisor,
-                                      length)
+                                      length, start)
         return hifigan_tail_launch(mode, y, bias, r, acc, slope, divisor,
-                                   length)
+                                   length, start)
 
 
 def hifigan_tail_launch(mode: str, y: torch.Tensor, bias: torch.Tensor,
                         r: torch.Tensor | None, acc: torch.Tensor | None,
-                        slope: float, divisor: float, length: int
-                        ) -> tuple[torch.Tensor, ...]:
+                        slope: float, divisor: float, length: int,
+                        start: int = 0) -> tuple[torch.Tensor, ...]:
     """Launch the kernel on tensors :func:`hifigan_tail` checked: raises
     for what the kernel does not take (C not a multiple of 8, a dtype other
     than bfloat16 and float32, tensors not on CUDA or not 16-byte
@@ -190,6 +202,6 @@ def hifigan_tail_launch(mode: str, y: torch.Tensor, bias: torch.Tensor,
         return None if t is None else t.data_ptr()
     cuda.HIFIGAN_TAIL.launch(ptr(y), ptr(r), ptr(acc), bias.data_ptr(),
                              out0.data_ptr(), ptr(out1), rows, length, C,
-                             Ty * C, MODES.index(mode),
+                             Ty * C, start, MODES.index(mode),
                              int(y.dtype == torch.bfloat16), slope, divisor)
     return (out0,) if out1 is None else (out0, out1)

@@ -5,9 +5,11 @@ reference (``benchmark/reference/models/vocoder_hifigan.py`` and
 streaming step chunk by chunk, streamed == offline on the interior, the
 batched server with joins and pauses against one stream per lane, the
 server's program against its eager step bit for bit, the receptive field
-against ``context_frames``, the stage markers, the step's cost against
-``benchmark/formulas_hifigan.py``, the parameter file and both CLIs.
-Imports no JAX.
+against ``context_frames``, the generator over the rows its kept samples
+depend on (``VocoderHiFiGANConfig.cone``) against the whole window bit for
+bit, the stage markers, the step's cost against
+``benchmark/formulas_hifigan.py``'s convention, the parameter file and both
+CLIs.  Imports no JAX.
 
 Tolerances, each relative to the compared output's RMS (or peak, where
 the offline tests of the other modes use the peak):
@@ -28,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import formulas_hifigan
+from benchmark import formulas, formulas_hifigan
 from benchmark.drivers.serve_vocoder import generator_weights
 from benchmark.reference.config import Config as RefConfig
 from benchmark.reference.models.vocoder_hifigan import Generator
@@ -47,7 +49,7 @@ from realtime_yukarin_tpu_torch.parallel.serving import (BatchedServer,
 from realtime_yukarin_tpu_torch.pipeline import offline_convert_eager
 from realtime_yukarin_tpu_torch.streaming.state import tree_leaves, tree_map
 from realtime_yukarin_tpu_torch.streaming.stream import VoiceChangerStream
-from realtime_yukarin_tpu_torch.utils import profiling
+from realtime_yukarin_tpu_torch.utils import cost, profiling
 
 from conftest import make_test_signal
 
@@ -144,6 +146,96 @@ def test_context_frames_is_the_measured_receptive_field(d):
     assert max(j - frames.min(), frames.max() - j) == ctx
     if not d:
         assert ctx == 21
+
+
+@pytest.fixture
+def one_order():
+    """The CPU's convolutions summed in one order whatever their width:
+    oneDNN, and MKL on several threads, choose their blocking by a
+    convolution's shape, so one layer over two widths of the same rows
+    rounds apart (at the published widths on an AVX-512 CPU: float32 by up
+    to 4e-7, float64 by 5e-16, of outputs near 0.5); single-threaded
+    without oneDNN each output row is summed alike at every width."""
+    threads, onednn = torch.get_num_threads(), torch.backends.mkldnn.enabled
+    torch.set_num_threads(1)
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+        torch.backends.mkldnn.enabled = onednn
+
+
+def _cone_cases():
+    """(config, dtype, out_ctx as a function of the halo) of the cone
+    test: SMALL and the published widths, float32 and float64, and the
+    kept frames offline (0: the whole window bar the last frame), one in,
+    at the halo and past it (the first layers then trimmed too)."""
+    for name, d in (("small", SMALL), ("published", {})):
+        for dtype in (torch.float32, torch.float64):
+            for label, ctx in (("0", lambda c: 0), ("1", lambda c: 1),
+                               ("halo", lambda c: c),
+                               ("halo+3", lambda c: c + 3)):
+                yield pytest.param(d, dtype, ctx, id=f"{name}-"
+                                   f"{str(dtype)[6:]}-{label}")
+
+
+@pytest.mark.parametrize("d,dtype,ctx", _cone_cases())
+def test_the_cone_keeps_the_whole_windows_samples_bit_for_bit(
+        d, dtype, ctx, one_order):
+    """One lane of a streamed step's window (the chunk's 20 frames, one
+    more and the halo on each side): the generator with ``out_ctx``
+    equals the same window run whole (``forward`` without it, the parent
+    step's computation), sliced to the kept frames, bit for bit."""
+    cfg, prog, _, _ = _generators({**d, "vocoder_mode": "hifigan"})
+    h = cfg.vocoder_hifigan
+    out_ctx, hop = ctx(h.context_frames), cfg.dsp.hop
+    T = cfg.streaming.chunk_frames(cfg.dsp) + 1 + 2 * h.context_frames
+    x = torch.randn((1, T, 67), generator=torch.Generator().manual_seed(6),
+                    dtype=dtype)
+    prog.to(dtype)
+    whole = prog(x, dtype)
+    kept = prog(x, dtype, None, out_ctx)
+    F = T - 1 - 2 * out_ctx
+    assert kept.shape == (1, F * hop)
+    assert torch.equal(kept, whole[:, out_ctx * hop: (out_ctx + F) * hop])
+
+
+def test_the_cone_at_the_published_widths():
+    """The rows each boundary runs at ``hifigan.serve256``'s window (63
+    frames, the 21-frame halo): conv_pre's output 56, the stages' 268,
+    583, 1,384 and 2,526 (of 315, 1,260, 3,780 and 7,560), conv_post's
+    input 2,406 for the 2,400 kept.  Then the cone is the dependency cone:
+    in float64 past the halo, one input frame just outside it leaves the
+    kept samples of the whole window bit-equal, one just inside moves
+    them, on either side."""
+    cfg, prog, _, _ = _generators({"vocoder_mode": "hifigan"})
+    h = cfg.vocoder_hifigan
+    assert h.context_frames == 21
+    cone = h.cone(63, 21)
+    # conv_pre's input, then per stage its input and its rows, conv_post's
+    # input and the kept samples
+    assert [hi - lo for lo, hi in cone] == [62, 56, 268, 148, 583, 463,
+                                            1384, 1264, 2526, 2406, 2400]
+    assert cone[1] == (3, 59) and cone[-1] == (2520, 4920)
+    assert h.cone(63, 0)[:5] == h.cone(63)[:5] == (
+        (0, 63), (0, 63), (0, 315), (0, 315), (0, 1260))
+    out_ctx = 24
+    (lo, hi), keep = h.cone(63, out_ctx)[0], h.cone(63, out_ctx)[-1]
+    assert (lo, hi) == (3, 59)
+    x = torch.randn((1, 63, 67), generator=torch.Generator().manual_seed(7),
+                    dtype=torch.float64)
+    prog.double()
+
+    def kept(j):
+        x2 = x.clone()
+        x2[0, j] += 1.0
+        return prog(x2, torch.float64)[0, keep[0]: keep[1]]
+    base = prog(x, torch.float64)[0, keep[0]: keep[1]]
+    for outside in (lo - 1, hi):
+        assert torch.equal(kept(outside), base), outside
+    for inside in (lo, hi - 1):
+        assert not torch.equal(kept(inside), base), inside
 
 
 def test_streaming_step_matches_the_reference_chunk_by_chunk(small):
@@ -305,19 +397,46 @@ def test_ddsp_learned_flops_are_the_formulas_too():
         formulas_hifigan.serve_learned_flops_mode(ref_cfg, geo, "ddsp"))
 
 
+def _cone_flops(h, d_in: int, lanes: int, cone: tuple) -> int:
+    """``formulas_hifigan``'s count (SAME taps included, a transposed
+    conv's every tap) of the generator over each layer's rows of
+    ``cone``."""
+    (a, b), *cone = cone
+    C = h.upsample_initial_channel
+    flops = 2 * lanes * (b - a) * 7 * d_in * C
+    for i, (u, k) in enumerate(zip(h.upsample_rates,
+                                   h.upsample_kernel_sizes)):
+        (a, b), (c, e) = cone[2 * i: 2 * i + 2]
+        flops += 2 * lanes * (b - a) * k * C * h.channels(i)
+        C = h.channels(i)
+        flops += sum(2 * 2 * lanes * (e - c) * kr * C * C * len(ds)
+                     for kr, ds in zip(h.resblock_kernel_sizes,
+                                       h.resblock_dilation_sizes))
+    a, b = cone[-2]
+    return flops + 2 * lanes * (b - a) * 7 * C
+
+
 def test_step_cost_counts_the_generator_as_the_formulas_do(small):
+    """The step runs the generator over its cone: the count is
+    ``formulas_hifigan``'s convention at the cone's rows, below its count
+    of the whole window (the stale count of the benchmark's formulas),
+    which the generator run whole gives."""
     cfg, params, ref_cfg, h, _ = small
     server = BatchedServer(params, cfg, num_streams=2,
                            vocoder_mode="hifigan", device="cpu")
     counted = model_stage_flops(server)
     rows = cfg.streaming.chunk_frames(cfg.dsp) + 1 + 2 * h.halo_frames
     assert counted["vocoder"] == 0 and counted["stage2"] == 0
-    assert counted["vocoder_hifigan"] == formulas_hifigan.generator_flops(
-        h, 67, 2, rows)
+    cone = cfg.vocoder_hifigan.cone(rows, h.halo_frames)
+    window = formulas_hifigan.generator_flops(h, 67, 2, rows)
+    assert counted["vocoder_hifigan"] == _cone_flops(
+        cfg.vocoder_hifigan, 67, 2, cone) < window
+    with torch.no_grad(), cost.StepCount() as count:
+        params["vocoder_hifigan"](torch.zeros(2, rows, 67))
+    assert count.flops == window
     geo = ref_hifigan.geometry(ref_cfg, h)
-    assert sum(counted.values()) == 2 * (
-        formulas_hifigan.serve_learned_flops_mode(ref_cfg, geo, "hifigan",
-                                                  h))
+    assert counted["stage1"] == 2 * formulas.stage1_flops(
+        ref_cfg, geo.chunk_frames)
     whole = server.step_cost_analysis()["flops"]
     assert whole > sum(counted.values())
 

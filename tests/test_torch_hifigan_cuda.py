@@ -24,9 +24,10 @@ pytestmark = pytest.mark.cuda
 STAGES = chip_smoke.hifigan_shapes(
     Config.from_dict({"vocoder_mode": "hifigan"}))
 # ragged ones: a row count no block divides, with and without the crop, a
-# single row
-RAGGED = [(37, STAGES[1][1], 256, STAGES[1][1] + 1), (37, 40, 128, 40),
-          (3, 7, 8, 8), (1, 1, 24, 1)]
+# window from a later row, a single row
+RAGGED = [(37, STAGES[1][1], 256, STAGES[1][1] + 1, 0), (37, 40, 128, 40, 0),
+          (37, 40, 128, 45, 3), (3, 7, 8, 8, 0), (3, 7, 8, 10, 2),
+          (1, 1, 24, 1, 0)]
 CASES = [("act", False), ("up", False), ("res", False), ("sum", False),
          ("sum", True), ("mean", False), ("mean", True)]
 SERVE_LANES = 16
@@ -43,33 +44,37 @@ def device():
 
 
 def test_the_stage_shapes_are_the_published_generators():
-    """256 lanes x 63 rows (``chip_smoke.hifigan_shapes``): conv_pre at
-    512 channels, then the crop at the odd strides 5 and 3 alone."""
-    assert STAGES == [(256, 63, 512, 63), (256, 315, 256, 316),
-                      (256, 1260, 128, 1260), (256, 3780, 64, 3781),
-                      (256, 7560, 32, 7560)]
+    """256 lanes of 63 frames (``chip_smoke.hifigan_shapes``), each layer
+    over the rows the kept samples depend on: conv_pre's act at 512
+    channels, then each stage's upsample and mean with their windows."""
+    assert STAGES == [(256, 56, 512, 62, 3),
+                      (256, 268, 256, 281, 6), (256, 148, 256, 268, 60),
+                      (256, 583, 128, 592, 4), (256, 463, 128, 583, 60),
+                      (256, 1384, 64, 1390, 4), (256, 1264, 64, 1384, 60),
+                      (256, 2526, 32, 2528, 1), (256, 2406, 32, 2526, 60)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,T,C,T_up", STAGES + RAGGED)
-def test_tail_kernel_equals_its_plain_version(device, rows, T, C, T_up,
-                                              dtype):
-    """Every mode, the upsample with the samples a row its transposed conv
-    gives (cropped or not): bit for bit, one launch a call."""
-    g = torch.Generator().manual_seed(rows * T + C)
+@pytest.mark.parametrize("rows,T,C,Ty,start", STAGES + RAGGED)
+def test_tail_kernel_equals_its_plain_version(device, rows, T, C, Ty,
+                                              start, dtype):
+    """Every mode keeping T of Ty samples a row from ``start`` (the sum
+    into acc in place uncropped): bit for bit, one launch a call."""
+    g = torch.Generator().manual_seed(rows * T + C + start)
 
     def t(*shape):
         return torch.randn(shape, generator=g).to(dtype).to(device)
     bias = torch.randn(C, generator=g).to(device)
     for mode, with_acc in CASES:
-        y = t(rows, T_up if mode == "up" else T, C)
-        r = t(rows, T, C) if mode in ("res", "sum", "mean") else None
-        acc = t(rows, T, C) if with_acc else None
+        Ty_, start_ = (T, 0) if mode == "sum" and with_acc else (Ty, start)
+        y = t(rows, Ty_, C)
+        r = t(rows, Ty_, C) if mode in ("res", "sum", "mean") else None
+        acc = t(rows, Ty_, C) if with_acc else None
         want = ht.hifigan_tail_plain(mode, y, bias, r,
                                      None if acc is None else acc.clone(),
-                                     0.1, 3.0, T)
+                                     0.1, 3.0, T, start_)
         before = cuda.HIFIGAN_TAIL.launches
-        got = ht.hifigan_tail(mode, y, bias, r, acc, 0.1, 3.0, T)
+        got = ht.hifigan_tail(mode, y, bias, r, acc, 0.1, 3.0, T, start_)
         torch.cuda.synchronize()
         assert cuda.HIFIGAN_TAIL.launches == before + 1
         assert len(got) == len(want)

@@ -3,7 +3,8 @@ channels-last forward, on the CPU; imports no JAX.
 
 * Each mode of the tail's plain version equals the unfused composition of
   torch ops it replaces (bias, crop, residual, the resblocks' sum and mean,
-  both slopes), bit for bit in float32.
+  both slopes), bit for bit in float32, keeping its operands' rows whole,
+  cropped at the end or from a later start row.
 * The channels-last generator equals the channels-first formulation it
   replaced (kept here as the witness: conv1d with the bias, leaky ReLUs,
   residual adds and the resblock mean as separate ops) within float32
@@ -33,47 +34,56 @@ TINY = {"vocoder_mode": "hifigan", "compute_dtype": "float32",
 F32_TOL = 1e-5
 
 
-def _operands(seed: int = 0):
+def _operands(seed: int = 0, Ty: int = T + 1):
+    """y, the bias, r and acc, each operand of Ty samples a row."""
     g = torch.Generator().manual_seed(seed)
 
     def t(*shape):
         return torch.randn(shape, generator=g)
-    return t(ROWS, T + 1, C), t(C), t(ROWS, T, C), t(ROWS, T, C)
+    return t(ROWS, Ty, C), t(C), t(ROWS, Ty, C), t(ROWS, Ty, C)
 
 
-def _unfused(mode, y, b, r, acc, slope, n):
+def _unfused(mode, y, b, r, acc, slope, n, start=0):
     """What the generator computed before the fusion, op by op (a conv
-    with its bias is y + b)."""
-    h = y[:, :T] + b
+    with its bias is y + b), over the operands' rows [start, start + T)."""
+    rows = slice(start, start + T)
+    h = y[:, rows] + b
     if mode == "act":
         return (Fn.leaky_relu(h, slope),)
     if mode == "up":
         return h, Fn.leaky_relu(h, slope)
-    x = r + h
+    x = r[:, rows] + h
     if mode == "res":
         return x, Fn.leaky_relu(x, slope)
-    s = x if acc is None else acc + x
+    s = x if acc is None else acc[:, rows] + x
     if mode == "sum":
         return (s,)
     return (Fn.leaky_relu(s / n, slope),)
 
 
-CASES = [("act", False, LRELU_SLOPE), ("up", False, LRELU_SLOPE),
-         ("res", False, LRELU_SLOPE), ("sum", False, LRELU_SLOPE),
-         ("sum", True, LRELU_SLOPE), ("mean", False, LRELU_SLOPE),
-         ("mean", True, LRELU_SLOPE), ("mean", True, POST_SLOPE)]
+MODE_CASES = [("act", False, LRELU_SLOPE), ("up", False, LRELU_SLOPE),
+              ("res", False, LRELU_SLOPE), ("sum", False, LRELU_SLOPE),
+              ("sum", True, LRELU_SLOPE), ("mean", False, LRELU_SLOPE),
+              ("mean", True, LRELU_SLOPE), ("mean", True, POST_SLOPE)]
+# each mode keeping T of T + 1 samples a row from row 0, then (but the sum
+# into acc in place, which keeps every row) T of T + 3 from row 2
+CASES = ([pytest.param(*c, 0, id="-".join(map(str, c)))
+          for c in MODE_CASES]
+         + [pytest.param(*c, 2, id="-".join(map(str, c)) + "-start2")
+            for c in MODE_CASES if c[:2] != ("sum", True)])
 
 
-@pytest.mark.parametrize("mode,with_acc,slope", CASES)
+@pytest.mark.parametrize("mode,with_acc,slope,start", CASES)
 def test_plain_tail_equals_the_unfused_ops_in_float32(mode, with_acc,
-                                                      slope):
-    y, b, r, acc = _operands()
+                                                      slope, start):
+    in_place = mode == "sum" and with_acc
+    y, b, r, acc = _operands(Ty=T if in_place else T + 1 + start)
     reads_r = mode in ("res", "sum", "mean")
     want = _unfused(mode, y, b, r if reads_r else None,
-                    acc if with_acc else None, slope, 3.0)
+                    acc if with_acc else None, slope, 3.0, start)
     got = ht.hifigan_tail(mode, y, b, r if reads_r else None,
                           acc.clone() if with_acc else None, slope=slope,
-                          divisor=3.0, length=T)
+                          divisor=3.0, length=T, start=start)
     assert len(got) == len(want)
     for a, w in zip(got, want):
         assert a.shape == (ROWS, T, C) and a.dtype == torch.float32
@@ -81,10 +91,11 @@ def test_plain_tail_equals_the_unfused_ops_in_float32(mode, with_acc,
 
 
 def test_sum_adds_into_the_stage_sum_in_place():
-    y, b, r, acc = _operands(1)
-    y = y[:, :T].contiguous()
+    y, b, r, acc = _operands(1, T)
     (out,) = ht.hifigan_tail("sum", y, b, r, acc)
     assert out is acc
+    with pytest.raises(ValueError, match="in place"):
+        ht.hifigan_tail("sum", y, b, r, acc, length=T - 1)
 
 
 def test_bfloat16_tail_rounds_once_per_stored_value():
@@ -207,7 +218,9 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="bias"):
         ht.hifigan_tail("act", y.bfloat16(), b.bfloat16())
     with pytest.raises(ValueError, match="r has shape"):
-        ht.hifigan_tail("res", y, b, r)             # length defaults to Ty
+        ht.hifigan_tail("res", y, b, r[:, :T].contiguous(), length=T)
+    with pytest.raises(ValueError, match="outside"):
+        ht.hifigan_tail("act", y, b, length=T, start=2)
     with pytest.raises(ValueError, match="reads no residual"):
         ht.hifigan_tail("act", y, b, r, length=T)
     with pytest.raises(ValueError, match="mode"):
