@@ -52,7 +52,19 @@ non-zero):
    the mean's (each keeping a window of its rows) and each other mode's:
    bit for bit against its plain version, its device time per launch
    beside the plain version's (``device_ms``), its byte bound, and a
-   stage's 19 tails together;
+   stage's 19 tails together.  Then the BigVGAN generator's passes at
+   the shapes a streamed step of the published BigVGAN v2 generator gives
+   them at BIGVGAN_LANES lanes (``bigvgan_shapes``): conv_pre's bias, then
+   at each of the six stages each kind of pass (the upsample's, a first
+   activation, a residual's, a sum with and without the running sum, the
+   mean, activation_post's at the last stage).  Those with an activation
+   (``csrc/bigvgan_act.cu``) are held against their plain version in
+   float32 (the activation within BIGVGAN_TOL of the peak: the kernel's
+   sine is the SFU's) and in bfloat16 (v bit for bit, the activation
+   within one bfloat16 rounding); those without (``csrc/hifigan_tail.cu``
+   at slope 1) bit for bit.  Each with its device time per launch beside
+   the plain version's, its bound (bytes against float32 operations), and
+   a stage's 21 passes together;
 4. main path: ``VoiceChangerStream(device="cuda")`` at the default Config
    (full width, bf16 models, seeded perturbed weights) on 3 s of a seeded
    voiced/unvoiced signal in 100 ms chunks, then ``flush()``; checks the
@@ -188,6 +200,12 @@ non-zero):
    capture: the tail launched once per gap between two convolutions a
    replay (77), as captured and as counted, every shape it was given one
    phase 3 held, the output finite and not silent, the step's p50 / p99;
+    then the bigvgan mode: a captured ``BatchedServer`` at BIGVGAN_LANES
+   lanes of the published BigVGAN v2 generator (bf16) for BIGVGAN_STEPS
+   replays: a pass launched once per gap between two convolutions a
+   replay (109 of ``bigvgan_act``, 18 of ``hifigan_tail``), as captured
+   and as counted, every shape each was given one
+   phase 3 held, the output finite and not silent, the step's p50 / p99;
 23. the kernels line: one JSON object with every kernel's numbers;
 24. last line: ``{"ok": true, "device": {...}}``.
 
@@ -231,6 +249,8 @@ REPLACES = {
     "harmonic_bank_bwd": "realtime_yukarin_tpu/ops/pallas_synth.py:101",
     "hifigan_tail": "none: added for the hifigan mode, which the JAX "
                     "package lacks",
+    "bigvgan_act": "none: added for the bigvgan mode, which the JAX "
+                   "package lacks",
 }
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 8, 100, 3
 # rows of one training or fine-tune batch of the quality recipe (8 x 16
@@ -272,6 +292,26 @@ DESIGN_RAGGED_ROWS = (2049, 10239)
 HIFIGAN_LANES, HIFIGAN_STEPS = 256, 8
 TAIL_CASES = (("up", False, 1), ("act", False, 9), ("res", False, 6),
               ("sum", False, 1), ("sum", True, 1), ("mean", True, 1))
+# The bigvgan mode's lanes (those of the bigvgan.serve128 cell) in phases
+# 3 and 22, and phase 22's replays.  Phase 3 runs the generator's passes in
+# each kind a stage runs them: (kind, operands, activation, v kept, passes
+# of that kind in a stage at the published widths: the upsample's, the
+# first activations (a block's own and each first conv's), the residuals',
+# the first block's sum, the second's and the mean, which activates in the
+# last stage alone).  A pass with no activation is hifigan_tail's in the
+# mode BIGVGAN_TAIL_MODES names.
+BIGVGAN_LANES, BIGVGAN_STEPS = 128, 6
+BIGVGAN_CASES = (("up", 1, True, True, 1), ("act", 1, True, False, 11),
+                 ("res", 2, True, True, 6), ("sum", 2, False, False, 1),
+                 ("sum+", 3, False, False, 1), ("mean", 3, None, False, 1))
+BIGVGAN_TAIL_MODES = {"bias": "act", "sum": "sum", "sum+": "sum",
+                      "mean": "mean"}
+# the activation's error / peak of the plain version's output in float32:
+# the kernel's __sinf against torch.sin (about 1e-6 of the argument) and
+# another order of the filters' sums; in bfloat16 one rounding of each
+# value (2**-7 of it) on top, where a float32 difference of that size near
+# a rounding boundary moves the rounding
+BIGVGAN_TOL = 1e-5
 # Both bank kernels at ragged (R, H, hop): one row, one past a row block,
 # one past the batch; one harmonic, one past a 32-group, the COMPAT 128,
 # the default 161; the default hop and one above 128 that is no multiple of
@@ -497,7 +537,9 @@ def launch_shape(name: str, args: tuple) -> tuple:
     ops/harmonic_bank.py, ops/hifigan_tail.py): (R, K) for the analysis
     kernels, (R, H, hop) for the bank, (R, H, hop, whether d_phi and d_frac
     are computed) for its backward, (rows, T, C, mode, y's samples a row,
-    the first one kept) for the generator's tail."""
+    the first one kept) for the generator's tail, (rows, T, C, operands,
+    v kept, the operand's rows, y's samples a row, the first one kept) for
+    the BigVGAN generator's activation pass."""
     if name == "power_spectrum":
         return int(args[3]), int(args[5])
     if name == "envelope_cepstrum":
@@ -508,6 +550,11 @@ def launch_shape(name: str, args: tuple) -> tuple:
         rows, length, C = (int(a) for a in args[6:9])
         return (rows, length, C, int(args[11]), int(args[9]) // C,
                 int(args[10]))
+    if name == "bigvgan_act":
+        rows, extent, y_row, start, length, C = (int(a) for a in args[9:15])
+        return (rows, length, C, 1 + (args[1] is not None)
+                + (args[2] is not None), args[7] is not None, extent,
+                y_row // C, start)
     return tuple(int(a) for a in args[9:12]) + (args[7] is not None,)
 
 
@@ -723,6 +770,244 @@ def tail_phase(cfg, dev) -> tuple[dict, set]:
                   library_device_ms=None,
                   stage_device_ms=[st["kernel"] for st in stages])
     return record, shapes
+
+
+def bigvgan_shapes(cfg) -> list[tuple]:
+    """(rows, samples a row kept, channels, the operand's rows, y's samples
+    a row, the first one kept) of conv_pre's bias pass, then per stage of
+    its upsample's pass (which keeps the stage's rows of the transposed
+    conv's output, a crop for an odd rate) and of its mean (which keeps the
+    rows the next layer reads), in a streamed step of ``cfg``'s BigVGAN
+    generator at BIGVGAN_LANES lanes: each layer over the rows the kept
+    samples depend on (``VocoderBigVGANConfig.cone``, on the window's
+    pairs of frames)."""
+    from realtime_yukarin_tpu_torch.streaming.state import StreamGeometry
+    b = cfg.vocoder_bigvgan
+    geo = StreamGeometry.from_config(cfg, vocoder_mode="bigvgan")
+    halo = b.halo_frames(cfg.dsp.hop)
+    T = geo.chunk_frames + 1 + 2 * halo
+    x, *cone = b.cone(T, halo, cfg.dsp.hop)
+    n = x[1] - x[0]
+    shapes = [(BIGVGAN_LANES, cone[0][1] - cone[0][0],
+               b.upsample_initial_channel, n, n, cone[0][0] - x[0])]
+    last = len(b.upsample_rates) - 1
+    for i, (u, k) in enumerate(zip(b.upsample_rates,
+                                   b.upsample_kernel_sizes)):
+        (lo, hi), rows = cone[2 * i: 2 * i + 2]
+        out = cone[-2] if i == last else cone[2 * i + 2]
+        up = (hi - lo - 1) * u - 2 * ((k - u) // 2) + k
+        R = rows[1] - rows[0]
+        shapes += [(BIGVGAN_LANES, R, b.channels(i), up - up % u, up,
+                    rows[0] - lo * u),
+                   (BIGVGAN_LANES, out[1] - out[0], b.channels(i), R, R,
+                    out[0] - rows[0])]
+    return shapes
+
+
+def bigvgan_passes(cfg) -> tuple[int, int]:
+    """(passes, those with an activation) in one forward of ``cfg``'s
+    BigVGAN generator: conv_pre's bias, then per stage the upsample's, a
+    first activation for each block after the first, two per dilation of
+    each block (the last of each block a sum or the mean), and
+    activation_post in the last stage's mean.  Those with an activation
+    are ``bigvgan_act``'s launches, the rest ``hifigan_tail``'s."""
+    b = cfg.vocoder_bigvgan
+    blocks = len(b.resblock_kernel_sizes)
+    per_stage = blocks + 2 * sum(len(ds) for ds in b.resblock_dilation_sizes)
+    stages = len(b.upsample_rates)
+    return 1 + stages * per_stage, stages * (per_stage - blocks) + 1
+
+
+def bigvgan_act_phase(cfg, dev) -> tuple[dict, set, set]:
+    """The BigVGAN generator's passes at ``bigvgan_shapes``: conv_pre's
+    bias, then each of BIGVGAN_CASES at each stage, the upsample's and the
+    mean's keeping their windows.  With an activation (``bigvgan_act``): in
+    float32 the activation within BIGVGAN_TOL of the plain version's peak
+    and v bit for bit; in bfloat16 v bit for bit and the activation within
+    one rounding of the plain version's and BIGVGAN_TOL of its peak.
+    Without (``hifigan_tail`` at slope 1): bit for bit in both.  Each with
+    its device time per launch (``device_ms``) beside the plain version's,
+    and its bound (``bigvgan_act_cost`` or ``hifigan_tail_cost``: bytes
+    over HBM bandwidth against FLOPs over the float32 peak).  Prints a line
+    per case and one per stage; returns the kernels-line record and the
+    shapes held (``launch_shape``'s) of each kernel."""
+    import torch
+    from realtime_yukarin_tpu_torch.ops import bigvgan_act as ba
+    from realtime_yukarin_tpu_torch.ops import hifigan_tail as ht
+    g = torch.Generator().manual_seed(SEED)
+    act_shapes, tail_shapes, stages = set(), set(), []
+    worst = 0.0
+
+    def case(label, kind, operands, act, keep_v, rows, T, C, extent, Ty,
+             start, last):
+        """One kind at one shape: its (kernel, plain, bound) ms."""
+        nonlocal worst
+        act = last if act is None else act
+        mode = None if act else BIGVGAN_TAIL_MODES[kind]
+        # a running sum kept whole is added into in place: a copy each call
+        fresh = mode == "sum" and operands == 3
+        for dtype in (torch.float32, torch.bfloat16):
+            y, r, acc = (torch.randn((rows, Ty, C), generator=g).to(dtype)
+                         .to(dev) if k < operands else None
+                         for k in range(3))
+            bias = torch.randn(C, generator=g).to(dev)
+            snake = (torch.exp(0.5 * torch.randn(C, generator=g)).to(dev),
+                     torch.exp(0.5 * torch.randn(C, generator=g)).to(dev))
+            divisor = 3.0 if kind == "mean" else 1.0
+
+            def run(fn, y=y, r=r, acc=acc, bias=bias, snake=snake,
+                    divisor=divisor):
+                a = acc.clone() if fresh else acc
+                if act:
+                    return fn(y, snake, bias, r, a, divisor, keep_v, start,
+                              T, extent)
+                return fn(mode, y, bias, r, a, 1.0, divisor, T, start)
+            if act:
+                got, want = run(ba.bigvgan_act), run(ba.bigvgan_act_plain)
+            else:
+                got, want = run(ht.hifigan_tail), run(ht.hifigan_tail_plain)
+            torch.cuda.synchronize()
+            same_v = not (keep_v or not act) or torch.equal(got[0], want[0])
+            ok_a = True
+            if act:
+                k, p = got[-1].float(), want[-1].float()
+                if dtype == torch.float32:
+                    err = float((k - p).abs().max() / p.abs().max())
+                    worst = max(worst, err)
+                    ok_a = err <= BIGVGAN_TOL
+                else:
+                    ok_a = bool(((k - p).abs() <= 2.0 ** -7 * p.abs()
+                                 + BIGVGAN_TOL * p.abs().max()).all())
+            if not (ok_a and same_v):
+                raise AssertionError(
+                    f"{'bigvgan_act' if act else 'hifigan_tail'} {label} "
+                    f"{kind} ({rows}, {T}, {C}) {dtype}: v equal {same_v}, "
+                    f"activation held {ok_a}")
+        if act:
+            flops, nbytes = ba.bigvgan_act_cost(rows, T, C, 2, operands,
+                                                keep_v)
+            kernel, plain = ba.bigvgan_act, ba.bigvgan_act_plain
+            act_shapes.add((rows, T, C, operands, keep_v, extent, Ty, start))
+        else:
+            flops, nbytes = ht.hifigan_tail_cost(mode, rows, T, C, 2,
+                                                 operands == 3)
+            kernel, plain = ht.hifigan_tail, ht.hifigan_tail_plain
+            tail_shapes.add((rows, T, C, ht.MODES.index(mode), Ty, start))
+        b_ms, b_by = bound_ms(nbytes, flops)
+        copy = device_ms(lambda: acc.clone()) if fresh else 0.0
+        k_ms = device_ms(lambda: run(kernel)) - copy
+        p_ms = device_ms(lambda: run(plain), 10) - copy
+        print(f"[kernel] {'bigvgan_act' if act else 'hifigan_tail'} {label} "
+              f"{kind}{' +act' if act else ''} ({rows}, {T}, {C}) of "
+              f"{extent} rows from {Ty} at {start}, bf16: held | device "
+              f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+              f"{b_ms * 1e3:.2f} us ({b_by}; {100 * b_ms / k_ms:.1f}% of "
+              f"it)")
+        return k_ms, p_ms, b_ms
+
+    (rows, T, C, extent, Ty, start), *after = bigvgan_shapes(cfg)
+    pre = case("conv_pre", "bias", 1, False, False, rows, T, C, extent, Ty,
+               start, False)
+    n_stages = len(after) // 2
+    for i, (up, mean) in enumerate(zip(after[::2], after[1::2])):
+        rows, R, C = up[:3]
+        stage = dict(kernel=0.0, plain=0.0, bound=0.0)
+        for kind, operands, act, keep_v, count in BIGVGAN_CASES:
+            window = {"up": up, "mean": mean}.get(kind, (rows, R, C, R, R, 0))
+            ms = case(f"s{i + 1}", kind, operands, act, keep_v, rows,
+                      window[1], C, *window[3:], i == n_stages - 1)
+            for key, m in zip(("kernel", "plain", "bound"), ms):
+                stage[key] += count * m
+        print(f"[kernel] bigvgan passes s{i + 1}: a stage's "
+              f"{sum(c for *_, c in BIGVGAN_CASES)} passes "
+              f"{stage['kernel']:.4f} ms (plain {stage['plain']:.4f} ms), "
+              f"bound {stage['bound']:.4f} ms "
+              f"({100 * stage['bound'] / stage['kernel']:.1f}%)")
+        stages.append(stage)
+    total = {k: sum(st[k] for st in stages) + m
+             for k, m in zip(("kernel", "plain", "bound"), pre)}
+    print(f"[kernel] bigvgan passes: conv_pre's and the stages' passes "
+          f"{total['kernel']:.4f} ms a step at {BIGVGAN_LANES} lanes (plain "
+          f"{total['plain']:.4f} ms), bound {total['bound']:.4f} ms; worst "
+          f"float32 activation error {worst:.3e} of the peak")
+    record = dict(max_abs_err=worst, ms=None, plain_ms=None,
+                  bound_ms=total["bound"], bound_by="bytes or operations",
+                  library_ms=None, device_ms=total["kernel"],
+                  plain_device_ms=total["plain"], library_device_ms=None,
+                  stage_device_ms=[st["kernel"] for st in stages])
+    return record, act_shapes, tail_shapes
+
+
+def bigvgan_phase(checked: dict[str, set], dev="cuda") -> dict:
+    """Phase 22, the bigvgan mode: a captured BatchedServer at
+    BIGVGAN_LANES lanes of the published BigVGAN v2 generator (bf16), its
+    first step (warm-up and capture) then BIGVGAN_STEPS replays: a pass
+    launched once per gap between two convolutions a replay
+    (``bigvgan_act`` where an activation follows, ``hifigan_tail``
+    elsewhere), as captured and as counted, every shape each was given
+    (``launch_shape``) one phase 3 held (``checked``), the output finite
+    and not silent.  Returns the phase's launches for the kernels line."""
+    import torch
+    from realtime_yukarin_tpu_torch.config import Config
+    from realtime_yukarin_tpu_torch.ops import cuda
+    from realtime_yukarin_tpu_torch.parallel.serving import BatchedServer
+    cfg = Config.from_dict({"vocoder_mode": "bigvgan"})
+    passes, with_act = bigvgan_passes(cfg)
+    want = {"bigvgan_act": with_act, "hifigan_tail": passes - with_act}
+    kernels = {"bigvgan_act": cuda.BIGVGAN_ACT,
+               "hifigan_tail": cuda.HIFIGAN_TAIL}
+    shapes, undo = record_shapes()
+    cuda.reset_counts()
+    try:
+        server = BatchedServer(seeded_params(cfg), cfg,
+                               num_streams=BIGVGAN_LANES, seed=SEED,
+                               vocoder_mode="bigvgan", device=dev)
+        S = server.chunk_samples
+        xs = lane_signals(BIGVGAN_LANES, BIGVGAN_STEPS + 1, cfg.dsp.in_rate,
+                          S)
+        server.step(np.ascontiguousarray(xs[:, :S]))
+        first = {n: k.launches for n, k in kernels.items()}
+        secs, ys = [], []
+        for k in range(1, BIGVGAN_STEPS + 1):
+            t0 = time.perf_counter()
+            ys.append(server.step(np.ascontiguousarray(
+                xs[:, k * S: (k + 1) * S])))
+            secs.append(time.perf_counter() - t0)
+        replays = {n: k.launches - first[n] for n, k in kernels.items()}
+        captured = {n: server.program.kernel_launches.get(n, 0)
+                    for n in kernels}
+        ok = server.captured
+        del server
+    finally:
+        undo()
+    launches = launch_counts()
+    y = np.stack(ys)
+    rms = float(np.sqrt(np.mean(y ** 2)))
+    p50, p99 = (float(np.percentile(secs, q)) * 1e3 for q in (50, 99))
+    chunk_s = cfg.streaming.chunk_samples(cfg.dsp) / cfg.dsp.sample_rate
+    seen = {n: sorted(set(shapes[n])) for n in kernels}
+    unchecked = {n: sorted(set(seen[n]) - checked[n]) for n in kernels}
+    print(f"[bigvgan] {BIGVGAN_LANES} lanes captured={ok}: pass launches "
+          f"{first} in the first step (warm-up and capture), {replays} in "
+          f"{BIGVGAN_STEPS} replays, {captured} as captured (a replay's "
+          f"gaps between two convolutions: {passes}, {with_act} with the "
+          f"activation); step p50 / p99 {p50:.3f} / {p99:.3f} ms, aggregate "
+          f"x{BIGVGAN_LANES * chunk_s * 1e3 / p50:.1f} realtime; output "
+          f"finite={bool(np.isfinite(y).all())}, rms {rms:.4f}; "
+          f"{sum(len(v) for v in seen.values())} shapes")
+    fails = []
+    if not ok or captured != want or replays != {
+            n: c * BIGVGAN_STEPS for n, c in want.items()}:
+        fails.append(f"pass launches {captured} as captured, {replays} in "
+                     f"{BIGVGAN_STEPS} replays, expected {want} a replay")
+    if any(unchecked.values()):
+        fails.append(f"shapes phase 3 did not check: {unchecked}")
+    if not np.isfinite(y).all() or rms < 1e-4:
+        fails.append(f"output non-finite or silent (rms {rms:.3e})")
+    if fails:
+        raise AssertionError(f"phase 22 (bigvgan): {fails}")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def hifigan_phase(checked: dict[str, set], dev="cuda") -> dict:
@@ -3622,6 +3907,10 @@ def main() -> int:
     record["hifigan_tail"], tail_shapes = tail_phase(Config.from_dict(
         {"vocoder_mode": "hifigan"}), dev)
     checked["hifigan_tail"] |= tail_shapes
+    record["bigvgan_act"], act_shapes, tail_shapes = bigvgan_act_phase(
+        Config.from_dict({"vocoder_mode": "bigvgan"}), dev)
+    checked["bigvgan_act"] |= act_shapes
+    checked["hifigan_tail"] |= tail_shapes
     kname = "harmonic_bank_bwd"
     names = ("d_aL", "d_aR", "d_phi", "d_frac")
     for R in (TRAIN_FRAMES, QUALITY_ROWS, TRAIN_BATCH * TRAIN_FRAMES,
@@ -3844,17 +4133,21 @@ def main() -> int:
     t0 = time.perf_counter()
     hifigan_launches = hifigan_phase(checked, dev)
     print(f"[hifigan] phase seconds {time.perf_counter() - t0:.1f}")
+    t0 = time.perf_counter()
+    bigvgan_launches = bigvgan_phase(checked, dev)
+    print(f"[bigvgan] phase seconds {time.perf_counter() - t0:.1f}")
 
     # 23. kernels line (launches: every path's run — the default stream,
     # training, offline in each mode, the ddsp/wave/client-rate streams,
     # the batched server, corpus preparation, corpus training, the quality
     # recipe, the ranks' serving and training, phase 20's training
     # replays and analyses, phase 21's 20 ms stream and server, and phase
-    # 22's hifigan server), 24. result line
+    # 22's hifigan and bigvgan servers), 24. result line
     paths = [launches, train_launches, *offline_launches.values(),
              *stream_launches.values(), batched_launches,
              *corpus_launches.values(), *multihost_launches.values(),
-             captured_train["launches"], cost_launches, hifigan_launches]
+             captured_train["launches"], cost_launches, hifigan_launches,
+             bigvgan_launches]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": [k.source for k in cuda.KERNELS if k.computes == name],

@@ -7,8 +7,11 @@ tensor is static, derived from the configuration: sample rates, the frame
 hop, chunk sizes and the model receptive fields that set the streaming
 halos.  ``tests/test_torch_config.py`` holds every field and derived
 property equal to the JAX ``Config``, apart from what the port alone has:
-the fourth vocoder mode, ``"hifigan"`` (:class:`VocoderHiFiGANConfig`, the
-``vocoder_hifigan`` section, and ``vocoder_hifigan_params_path``).
+the fourth and fifth vocoder modes, ``"hifigan"``
+(:class:`VocoderHiFiGANConfig`, the ``vocoder_hifigan`` section, and
+``vocoder_hifigan_params_path``) and ``"bigvgan"``
+(:class:`VocoderBigVGANConfig`, ``vocoder_bigvgan`` and
+``vocoder_bigvgan_params_path``).
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ except Exception:  # pragma: no cover
 HARMONIC_NYQUIST_FRACTION = 0.95
 
 
-# the synthesis stages (models/vocoders.py); "hifigan" is the port's alone
-VOCODER_MODES = ("dsp", "ddsp", "wave", "hifigan")
+# the synthesis stages (models/vocoders.py); "hifigan" and "bigvgan" are
+# the port's alone
+VOCODER_MODES = ("dsp", "ddsp", "wave", "hifigan", "bigvgan")
 
 
 def _check_mode(mode: str) -> str:
@@ -438,7 +442,12 @@ class VocoderHiFiGANConfig:
     multiply to this system's hop of 120 (V1's 8·8·2·2 is hop 256), with
     V1's k_u = 2u.  ResBlock1 (V1's ``resblock: "1"``) is the only block
     there is, so it is no field.  The streaming halo is the generator's
-    receptive field (:attr:`context_frames`), never a knob."""
+    receptive field (:meth:`halo_frames`), never a knob.
+
+    The layer walk is shared with :class:`VocoderBigVGANConfig`: each
+    conditioning row spans :meth:`frames_per_row` frames (one here), and
+    an activation reads ``ACT_REACH`` rows on either side of its own (none
+    for the leaky ReLU)."""
 
     upsample_initial_channel: int = 512
     upsample_rates: tuple = (5, 4, 3, 2)
@@ -446,15 +455,17 @@ class VocoderHiFiGANConfig:
     resblock_kernel_sizes: tuple = (3, 7, 11)
     resblock_dilation_sizes: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
 
+    ACT_REACH = 0       # a pointwise activation: reads its own row alone
+
     def __post_init__(self):
         for f in ("upsample_rates", "upsample_kernel_sizes",
                   "resblock_kernel_sizes", "resblock_dilation_sizes"):
             object.__setattr__(self, f, _tuples(getattr(self, f)))
-        if not (1 <= len(self.upsample_rates) <= 4
+        if not (1 <= len(self.upsample_rates) <= 6
                 and len(self.upsample_rates)
                 == len(self.upsample_kernel_sizes)):
-            raise ValueError("1 to 4 upsampling stages (the profiling "
-                             "markers name four), one kernel size each")
+            raise ValueError("1 to 6 upsampling stages (the profiling "
+                             "markers name six), one kernel size each")
         if len(self.resblock_kernel_sizes) != len(
                 self.resblock_dilation_sizes):
             raise ValueError("one dilation list per resblock kernel size")
@@ -466,44 +477,72 @@ class VocoderHiFiGANConfig:
 
     @property
     def samples_per_frame(self) -> int:
+        """Output samples a conditioning row: the rates' product."""
         return math.prod(self.upsample_rates)
 
     def channels(self, stage: int) -> int:
         """Channels after upsampling stage ``stage`` (0-based)."""
         return self.upsample_initial_channel // 2 ** (stage + 1)
 
+    def frames_per_row(self, hop: int) -> int:
+        """Frames of ``hop`` samples that one conditioning row spans: the
+        rates' product over the hop.  ValueError where it is no whole
+        number."""
+        if self.samples_per_frame % hop:
+            raise ValueError(
+                f"the upsample rates {self.upsample_rates} give "
+                f"{self.samples_per_frame} samples a row, not a whole "
+                f"number of frames of {hop}")
+        return self.samples_per_frame // hop
+
     @property
     def context_frames(self) -> int:
-        """One-sided receptive field in frames: the input frames on either
-        side of a frame that its output samples read, through every layer
-        (conv_pre, each transposed conv and the widest resblock chain, and
-        conv_post), from the layer list alone (:meth:`_walk` of frame 0's
-        samples, unclamped)."""
+        """One-sided receptive field in conditioning rows: the input rows
+        on either side of a row that its output samples read, through every
+        layer (conv_pre, each transposed conv and the widest resblock
+        chain with its activations, and conv_post), from the layer list
+        alone (:meth:`_walk` of row 0's samples, unclamped).  Rows are
+        frames where a row spans one frame (:meth:`halo_frames`)."""
         lo, hi = self._walk(0, self.samples_per_frame)[0]
         return max(-lo, hi - 1)
 
-    def cone(self, T: int, out_ctx: int | None = None) -> tuple:
+    def halo_frames(self, hop: int) -> int:
+        """:attr:`context_frames` in frames of ``hop`` samples: whole
+        rows, so a streamed window's halo keeps its rows aligned."""
+        return self.frames_per_row(hop) * self.context_frames
+
+    def cone(self, T: int, out_ctx: int | None = None,
+             hop: int | None = None) -> tuple:
         """The rows each layer boundary computes over a window of T frames
-        for the output samples kept: frames [out_ctx, T - out_ctx - 1)
-        (``models/vocoder_hifigan.py:hifigan_vocode``'s), or all T frames
-        for None.  Half-open (lo, hi) in the boundary's own samples, input
-        first: conv_pre's input, then per stage its transposed conv's
-        input (conv_pre's kept output or the last stage's) and its rows
-        (the transposed conv's cropped output, which the stage's resblocks
-        run over), then conv_post's input and the kept samples.  Each is
-        the rows the next one reads, clamped to the window's own (so the
-        whole window when every row is kept); a range not at the window's
-        edge holds, besides what is read on, the rows a SAME conv corrupts
-        at a slice's edge."""
-        hop = self.samples_per_frame
+        of ``hop`` samples (a row a frame by default) for the output
+        samples kept: frames [out_ctx, T - out_ctx - 1)
+        (``models/vocoder_hifigan.py:hifigan_vocode``'s), or the whole
+        window for None.  The window holds T // :meth:`frames_per_row`
+        conditioning rows (a trailing frame short of a row is not read).
+        Half-open (lo, hi) in the boundary's own samples, input first:
+        conv_pre's input rows, then per stage its transposed conv's input
+        (conv_pre's kept output or the last stage's) and its rows (the
+        transposed conv's cropped output, which the stage's resblocks run
+        over), then, where the activation reads a neighbourhood,
+        activation_post's input, then conv_post's input and the kept
+        samples.  Each is the rows the next one reads, clamped to the
+        window's own (so the whole window when every row is kept); a
+        range not at the window's edge holds, besides what is read on, the
+        rows a SAME conv or an edge-padded activation corrupts at a
+        slice's edge."""
+        hop = hop or self.samples_per_frame
+        rows = T // self.frames_per_row(hop)
         if out_ctx is None:
-            return self._walk(0, T * hop, T)
-        return self._walk(out_ctx * hop, (T - out_ctx - 1) * hop, T)
+            return self._walk(0, rows * self.samples_per_frame, rows)
+        return self._walk(out_ctx * hop, (T - out_ctx - 1) * hop, rows)
 
     def _walk(self, lo: int, hi: int, T: int | None = None) -> tuple:
-        """:meth:`cone` of output samples [lo, hi), by walking the layer
-        list backward; unclamped for T None (an infinite window)."""
-        reach = max(sum((d + 1) * (k - 1) // 2 for d in ds)   # the MRF
+        """:meth:`cone` of output samples [lo, hi) over T rows, by walking
+        the layer list backward; unclamped for T None (an infinite
+        window).  Each activation widens a range by ``ACT_REACH``."""
+        a = self.ACT_REACH
+        reach = max(sum((d + 1) * (k - 1) // 2 + 2 * a      # the MRF
+                        for d in ds)
                     for k, ds in zip(self.resblock_kernel_sizes,
                                      self.resblock_dilation_sizes))
         n = None if T is None else T * self.samples_per_frame
@@ -511,6 +550,9 @@ class VocoderHiFiGANConfig:
         def clamp(lo, hi):
             return (lo, hi) if n is None else (max(lo, 0), min(hi, n))
         ranges = [(lo, hi), clamp(lo - 3, hi + 3)]          # conv_post
+        if a:
+            lo, hi = ranges[-1]
+            ranges.append(clamp(lo - a, hi + a))        # activation_post
         for u, k in reversed(list(zip(self.upsample_rates,
                                       self.upsample_kernel_sizes))):
             lo, hi = ranges[-1]
@@ -523,6 +565,38 @@ class VocoderHiFiGANConfig:
         lo, hi = ranges[-1]
         ranges.append(clamp(lo - 3, hi + 3))                # conv_pre
         return tuple(reversed(ranges))
+
+
+@dataclasses.dataclass(frozen=True)
+class VocoderBigVGANConfig(VocoderHiFiGANConfig):
+    """The BigVGAN v2 generator (Lee et al., "BigVGAN: A Universal Neural
+    Vocoder with Large-Scale Training", ICLR 2023, arXiv:2206.04658; the
+    widths of ``configs/bigvgan_v2_24khz_100band_256x.json`` of
+    github.com/NVIDIA/BigVGAN), the fifth vocoder mode (``vocoder_mode:
+    bigvgan``; the port's alone).  HiFi-GAN's layer list with AMPBlock1
+    (``resblock: "1"``) in place of ResBlock1: every activation an
+    anti-aliased SnakeBeta with log-scale parameters (2x polyphase
+    upsample by a 12-tap Kaiser-windowed sinc, the snake, the same filter
+    back down at stride 2: ``ops/bigvgan_act.py``), whose filters read 5
+    rows on either side (``ACT_REACH``); no activation before a transposed
+    conv; an activation after the last stage (``activation_post``); and
+    conv_post without bias, clamped to [-1, 1] where V1 takes tanh.  The
+    block, the activation and the final layer are the only ones there are,
+    so they are no fields.
+
+    The published rates (4, 4, 2, 2, 2, 2) multiply to 256; here six rates
+    multiply to 240, two frames of this system's hop of 120 (no six whole
+    rates of at least 2 multiply to 120), with BigVGAN's k_u = 2u: each
+    conditioning row is the mean of an aligned pair of frames
+    (:meth:`frames_per_row`)."""
+
+    upsample_initial_channel: int = 1536
+    upsample_rates: tuple = (5, 3, 2, 2, 2, 2)
+    upsample_kernel_sizes: tuple = (10, 6, 4, 4, 4, 4)
+    resblock_kernel_sizes: tuple = (3, 7, 11)
+    resblock_dilation_sizes: tuple = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+
+    ACT_REACH = 5       # Up2, the snake, Down2: 5 input rows either side
 
 
 @dataclasses.dataclass(frozen=True)
@@ -567,6 +641,8 @@ class Config:
         default_factory=VocoderWaveConfig)
     vocoder_hifigan: VocoderHiFiGANConfig = dataclasses.field(
         default_factory=VocoderHiFiGANConfig)
+    vocoder_bigvgan: VocoderBigVGANConfig = dataclasses.field(
+        default_factory=VocoderBigVGANConfig)
     streaming: StreamingConfig = dataclasses.field(
         default_factory=StreamingConfig)
     serving: ServingConfig = dataclasses.field(default_factory=ServingConfig)
@@ -583,6 +659,7 @@ class Config:
     vocoder_params_path: str | None = None
     vocoder_wave_params_path: str | None = None
     vocoder_hifigan_params_path: str | None = None
+    vocoder_bigvgan_params_path: str | None = None
     input_statistics_path: str | None = None
     target_statistics_path: str | None = None
     # Synthesis stage selection (BASELINE config #4):
@@ -590,6 +667,7 @@ class Config:
     #   "ddsp" — DDSP control net rescaling the DSP renderer's controls
     #   "wave" — learned iSTFT residual head (full waveform freedom)
     #   "hifigan" — the HiFi-GAN V1 generator (the port's alone)
+    #   "bigvgan" — the BigVGAN v2 generator (the port's alone)
     # ``use_neural_vocoder: true`` is the legacy spelling of "ddsp".
     vocoder_mode: str = "dsp"
     use_neural_vocoder: bool = False
@@ -631,6 +709,7 @@ class Config:
             "vocoder_nn": VocoderNNConfig,
             "vocoder_wave": VocoderWaveConfig,
             "vocoder_hifigan": VocoderHiFiGANConfig,
+            "vocoder_bigvgan": VocoderBigVGANConfig,
             "streaming": StreamingConfig,
             "serving": ServingConfig,
         }

@@ -36,6 +36,8 @@ __global__ void stage_begin_vocoder_s1() {}
 __global__ void stage_begin_vocoder_s2() {}
 __global__ void stage_begin_vocoder_s3() {}
 __global__ void stage_begin_vocoder_s4() {}
+__global__ void stage_begin_vocoder_s5() {}
+__global__ void stage_begin_vocoder_s6() {}
 __global__ void stage_end() {}
 }  // extern "C"
 
@@ -58,7 +60,9 @@ extern "C" int stage_mark_forward(int stage, void* stream) {
     case 13: stage_begin_vocoder_s2<<<1, 1, 0, s>>>(); break;
     case 14: stage_begin_vocoder_s3<<<1, 1, 0, s>>>(); break;
     case 15: stage_begin_vocoder_s4<<<1, 1, 0, s>>>(); break;
-    case 16: stage_end<<<1, 1, 0, s>>>(); break;
+    case 16: stage_begin_vocoder_s5<<<1, 1, 0, s>>>(); break;
+    case 17: stage_begin_vocoder_s6<<<1, 1, 0, s>>>(); break;
+    case 18: stage_end<<<1, 1, 0, s>>>(); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -17,7 +17,8 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
 
 
 def init_module(net: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Lecun-normal kernels and zero biases for every layer of
+    """Lecun-normal kernels and zero biases (where a layer has one) for
+    every layer of
     ``net.flax_layers()``, in their order; the layers named in
     ``net.ZERO_INIT`` (the zero-initialised heads) get zero kernels.
     Returns ``net``."""
@@ -28,5 +29,6 @@ def init_module(net: nn.Module, generator: torch.Generator) -> nn.Module:
                 w.zero_()
             else:
                 lecun_normal_(w, w[0].numel(), generator)
-            layer.bias.zero_()
+            if layer.bias is not None:
+                layer.bias.zero_()
     return net

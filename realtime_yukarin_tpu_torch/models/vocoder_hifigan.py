@@ -155,18 +155,24 @@ class HiFiGANGenerator(nn.Module):
 
     ``forward(x, dtype, mark, out_ctx)`` calls ``mark("vocoder_s<i>")``
     before upsampling stage i (1-based) and ``mark("vocoder")`` before
-    conv_post: the stage markers of ``utils/profiling.py``."""
+    conv_post: the stage markers of ``utils/profiling.py``.
+
+    The skeleton of both generators: the cone, the convolutions and the
+    markers are :meth:`forward`'s; what lies between two convolutions is
+    the hooks' (``_pre_tail``, ``_up_tail``, ``_stage``, ``_post_tail``),
+    which ``models/vocoder_bigvgan.py`` overrides, with the block
+    (``BLOCK``) and conv_post's bias (``POST_BIAS``).  A conditioning row
+    spans ``frames_per_row`` frames (:meth:`_condition`)."""
 
     ZERO_INIT = ()
+    BLOCK = ResBlock1
+    POST_BIAS = True
 
     def __init__(self, cfg: VocoderHiFiGANConfig, dsp_cfg: DspConfig):
         super().__init__()
-        if cfg.samples_per_frame != dsp_cfg.hop:
-            raise ValueError(
-                f"the upsample rates {cfg.upsample_rates} give "
-                f"{cfg.samples_per_frame} samples a frame, the hop is "
-                f"{dsp_cfg.hop}")
         self.cfg = cfg
+        self.hop = dsp_cfg.hop
+        self.frames_per_row = cfg.frames_per_row(dsp_cfg.hop)
         C = cfg.upsample_initial_channel
         self.conv_pre = nn.Conv1d(vocoder_input_dim(dsp_cfg), C, 7)
         self.ups = nn.ModuleList(
@@ -174,12 +180,12 @@ class HiFiGANGenerator(nn.Module):
             for i, (u, k) in enumerate(zip(cfg.upsample_rates,
                                            cfg.upsample_kernel_sizes)))
         self.resblocks = nn.ModuleList(
-            ResBlock1(cfg.channels(i), k, ds)
+            self.BLOCK(cfg.channels(i), k, ds)
             for i in range(len(cfg.upsample_rates))
             for k, ds in zip(cfg.resblock_kernel_sizes,
                              cfg.resblock_dilation_sizes))
         self.conv_post = nn.Conv1d(cfg.channels(len(cfg.upsample_rates) - 1),
-                                   1, 7)
+                                   1, 7, bias=self.POST_BIAS)
         # dtype -> (the parameters' key, Packed, the tensors it holds)
         self._packed: dict = {}
 
@@ -206,27 +212,34 @@ class HiFiGANGenerator(nn.Module):
         key = [(p.data_ptr(), p._version) for p in params]
         entry = self._packed.get(dtype)
         if entry is None or entry[0] != key:
-            bias_dtype = torch.promote_types(dtype, torch.float32)
             held = list(params)
 
-            def conv(layer):
-                w = layer.weight.detach().to(dtype).unsqueeze(2)
-                wb = (w.contiguous(memory_format=torch.channels_last),
-                      layer.bias.detach().to(bias_dtype).contiguous())
-                held.extend(wb)
-                return wb
-            n = len(self.cfg.resblock_kernel_sizes)
-            blocks = tuple(
-                tuple(tuple(conv(c1) + conv(c2)
-                            for c1, c2 in zip(rb.convs1, rb.convs2))
-                      for rb in self.resblocks[i * n: (i + 1) * n])
-                for i in range(len(self.ups)))
-            packed = Packed(conv(self.conv_pre),
-                            tuple(conv(up) for up in self.ups), blocks,
-                            conv(self.conv_post))
-            entry = self._packed[dtype] = key, packed, held
+            def keep(*tensors):
+                held.extend(t for t in tensors if t is not None)
+                return tensors
+            entry = self._packed[dtype] = key, self._pack(dtype, keep), held
         cuda.hold(*entry[2])
         return entry[1]
+
+    def _pack(self, dtype: torch.dtype, keep: Callable) -> Packed:
+        """:meth:`packed`'s layout; every tensor it makes goes through
+        ``keep``, which holds it."""
+        bias_dtype = torch.promote_types(dtype, torch.float32)
+
+        def conv(layer):
+            w = layer.weight.detach().to(dtype).unsqueeze(2)
+            b = layer.bias
+            return keep(w.contiguous(memory_format=torch.channels_last),
+                        None if b is None
+                        else b.detach().to(bias_dtype).contiguous())
+        n = len(self.cfg.resblock_kernel_sizes)
+        blocks = tuple(
+            tuple(tuple(conv(c1) + conv(c2)
+                        for c1, c2 in zip(rb.convs1, rb.convs2))
+                  for rb in self.resblocks[i * n: (i + 1) * n])
+            for i in range(len(self.ups)))
+        return Packed(conv(self.conv_pre), tuple(conv(up) for up in self.ups),
+                      blocks, conv(self.conv_post))
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, dtype=torch.float32,
@@ -237,31 +250,60 @@ class HiFiGANGenerator(nn.Module):
         w = self.packed(dtype)
         # each tail keeps the next range's rows of its conv's output, from
         # that range's first row less the first row the output holds
-        (lo, hi), *cone = self.cfg.cone(T, out_ctx)
-        (a,) = hifigan_tail("act", _conv(x.reshape(-1, T, D)[:, lo: hi]
-                                         .to(dtype), w.pre[0]),
-                            w.pre[1], slope=LRELU_SLOPE,
-                            start=cone[0][0] - lo, length=_rows(cone[0]))
+        (lo, hi), *cone = self.cfg.cone(T, out_ctx, self.hop)
+        a = self._pre_tail(
+            _conv(self._condition(x.reshape(-1, T, D), lo, hi).to(dtype),
+                  w.pre[0]), w, cone[0][0] - lo, _rows(cone[0]))
         rates = self.cfg.upsample_rates
-        n = len(self.cfg.resblock_kernel_sizes)
         for i, u in enumerate(rates):
             mark(f"vocoder_s{i + 1}")
             (lo, _), rows, out = cone[2 * i: 2 * i + 3]
-            h, a = hifigan_tail("up", _conv_up(a, w.ups[i][0], u),
-                                w.ups[i][1], slope=LRELU_SLOPE,
-                                start=rows[0] - lo * u, length=_rows(rows))
-            slope = LRELU_SLOPE if i + 1 < len(rates) else POST_SLOPE
-            acc = None
-            for j, (layers, ds) in enumerate(zip(
-                    w.blocks[i], self.cfg.resblock_dilation_sizes)):
-                keep = (out[0] - rows[0], _rows(out)) if j == n - 1 else None
-                acc = _resblock(h, a, layers, ds, acc, n, slope, keep)
-            a = acc
+            h, a = self._up_tail(_conv_up(a, w.ups[i][0], u), w, i,
+                                 rows[0] - lo * u, _rows(rows))
+            last = i + 1 == len(rates)
+            out = cone[-2] if last else out
+            a = self._stage(h, a, w, i, (out[0] - rows[0], _rows(out)), last)
         mark("vocoder")
         (lo, _), keep = cone[-2:]
         y = _conv(a, w.post[0])[:, keep[0] - lo: keep[1] - lo]
+        return self._post_tail(y, w).reshape(*lead, _rows(keep))
+
+    def _condition(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
+        """Conditioning rows [lo, hi) of frames x [B, T, D]: a row the mean
+        of its ``frames_per_row`` frames (one: the frame itself)."""
+        r = self.frames_per_row
+        if r == 1:
+            return x[:, lo: hi]
+        B, _, D = x.shape
+        return x[:, lo * r: hi * r].reshape(B, hi - lo, r, D).mean(2)
+
+    def _pre_tail(self, y, w: Packed, start: int, length: int):
+        """conv_pre's output to the first transposed conv's input."""
+        return hifigan_tail("act", y, w.pre[1], slope=LRELU_SLOPE,
+                            start=start, length=length)[0]
+
+    def _up_tail(self, y, w: Packed, i: int, start: int, length: int):
+        """Stage i's transposed conv output to (its rows, the first
+        resblock conv's input)."""
+        return hifigan_tail("up", y, w.ups[i][1], slope=LRELU_SLOPE,
+                            start=start, length=length)
+
+    def _stage(self, h, a, w: Packed, i: int, keep: tuple, last: bool):
+        """Stage i's resblocks over its rows ``h`` (``a`` their
+        activation): the next conv's input over ``keep`` (start, length)."""
+        n = len(self.cfg.resblock_kernel_sizes)
+        slope = POST_SLOPE if last else LRELU_SLOPE
+        acc = None
+        for j, (layers, ds) in enumerate(zip(
+                w.blocks[i], self.cfg.resblock_dilation_sizes)):
+            acc = _resblock(h, a, layers, ds, acc, n, slope,
+                            keep if j == n - 1 else None)
+        return acc
+
+    def _post_tail(self, y, w: Packed) -> torch.Tensor:
+        """conv_post's kept samples to the waveform."""
         y = y.to(torch.promote_types(y.dtype, torch.float32)) + w.post[1]
-        return torch.tanh(y).reshape(*lead, _rows(keep))
+        return torch.tanh(y)
 
 
 def _rows(r: tuple) -> int:

@@ -16,6 +16,8 @@ from realtime_yukarin_tpu_torch.config import (Config, _check_mode,
                                                resolve_vocoder_mode)
 from realtime_yukarin_tpu_torch.dsp.synthesis import (SynthCarry, WaveCarry,
                                                       render, synthesize)
+from realtime_yukarin_tpu_torch.models.vocoder_bigvgan import (
+    BigVGANGenerator)
 from realtime_yukarin_tpu_torch.models.vocoder_hifigan import (
     HiFiGANGenerator, hifigan_vocode)
 from realtime_yukarin_tpu_torch.models.vocoder_nn import (
@@ -24,6 +26,7 @@ from realtime_yukarin_tpu_torch.models.vocoder_wave import waveform_vocode
 from realtime_yukarin_tpu_torch.utils import profiling
 
 HIFIGAN = "vocoder_hifigan"     # the params key of the HiFi-GAN generator
+BIGVGAN = "vocoder_bigvgan"     # the params key of the BigVGAN generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +43,9 @@ class Vocoder:
                                                                 device)
     net: tuple | None = None    # (params key, cfg -> module) of its own net
     splits: bool = True         # serves at model_parallel > 1
+    # cfg -> the frames one row of its net's input spans: the streaming
+    # geometry keeps a step's window and its halo to whole rows
+    frames_per_row: Callable = lambda cfg: 1
 
     def stream(self, params, cfg, f0, env, ap, mc, synth, noise, dtype,
                like: torch.Tensor):
@@ -77,10 +83,29 @@ def _wave(params, cfg, f0, env, ap, mc, noise, synth, ctx, dtype, mark):
                            dtype=dtype)
 
 
-def _hifigan(params, cfg, f0, env, ap, mc, noise, synth, ctx, dtype, mark):
-    mark("vocoder")     # then one a stage, and again before conv_post
-    return hifigan_vocode(params[HIFIGAN], f0, mc, ap, dtype, out_ctx=ctx,
-                          mark=mark), synth
+def _generator(key: str, section: str, make: type) -> Vocoder:
+    """The record of a GAN generator mode (``models/vocoder_hifigan.py``'s
+    skeleton; ``key`` its params key, ``section`` its config section): it
+    reads mc, ap and F0, keeps no carry (each step reads its halo anew,
+    every layer over the rows its kept samples depend on) and has no layer
+    split over a model group; its halo is its receptive field in frames,
+    whole conditioning rows."""
+    def halo(cfg):
+        return getattr(cfg, section).halo_frames(cfg.dsp.hop)
+
+    def vocode(params, cfg, f0, env, ap, mc, noise, synth, ctx, dtype,
+               mark):
+        mark("vocoder")     # then one a stage, and again before conv_post
+        return hifigan_vocode(params[key], f0, mc, ap, dtype, out_ctx=ctx,
+                              mark=mark), synth
+    return Vocoder(
+        context_frames=halo, reads_envelope=False,
+        init_synth=lambda cfg, device: None, vocode=vocode, splits=False,
+        learned_calls=lambda params, cfg, x, L, dtype: {
+            "vocoder": None, key: (params[key], x, dtype, None, halo(cfg))},
+        net=(key, lambda cfg: make(getattr(cfg, section), cfg.dsp)),
+        frames_per_row=lambda cfg: getattr(cfg, section).frames_per_row(
+            cfg.dsp.hop))
 
 
 def _wave_calls(params, cfg, x, L, dtype) -> dict[str, tuple]:
@@ -105,19 +130,8 @@ VOCODERS: dict[str, Vocoder] = {
         init_synth=lambda cfg, device: WaveCarry.zeros(
             cfg.dsp, device, phase_fractional=cfg.vocoder_wave
             .phase_fractional)),
-    # the generator reads mc, ap and F0, keeps no carry (each step reads
-    # its halo anew, every layer over the rows its kept samples depend on)
-    # and has no layer split over a model group
-    "hifigan": Vocoder(
-        context_frames=lambda cfg: cfg.vocoder_hifigan.context_frames,
-        reads_envelope=False, init_synth=lambda cfg, device: None,
-        vocode=_hifigan, splits=False,
-        learned_calls=lambda params, cfg, x, L, dtype: {
-            "vocoder": None, HIFIGAN: (
-                params[HIFIGAN], x, dtype, None,
-                cfg.vocoder_hifigan.context_frames)},
-        net=(HIFIGAN, lambda cfg: HiFiGANGenerator(cfg.vocoder_hifigan,
-                                                   cfg.dsp))),
+    "hifigan": _generator(HIFIGAN, "vocoder_hifigan", HiFiGANGenerator),
+    "bigvgan": _generator(BIGVGAN, "vocoder_bigvgan", BigVGANGenerator),
 }
 EXTRA_NETS = tuple(v.net[0] for v in VOCODERS.values() if v.net)
 

@@ -10,7 +10,8 @@ tensors).  Weights cross to and from the JAX package in its ``.npz`` layout
 (strict like ``unflatten_params``) and :func:`params_to_jax`.
 
 A vocoder mode's own net (``models/vocoders.py``: the hifigan mode's
-``"vocoder_hifigan"``) is built (:func:`init_params`) and loaded
+``"vocoder_hifigan"``, the bigvgan mode's ``"vocoder_bigvgan"``) is built
+(:func:`init_params`) and loaded
 (:func:`load_all_params`) in that mode only.  The JAX package has none, so
 it is not in ``NETS`` or the ``.npz`` layout; a full-tree load keeps it.
 """
@@ -34,8 +35,8 @@ from realtime_yukarin_tpu_torch.models.super_resolution import (
     SRNet, refine_envelope)
 from realtime_yukarin_tpu_torch.models.vocoder_nn import VocoderControlNet
 from realtime_yukarin_tpu_torch.models.vocoder_wave import WaveDecoderNet
-from realtime_yukarin_tpu_torch.models.vocoders import (EXTRA_NETS, HIFIGAN,
-                                                        vocoder)
+from realtime_yukarin_tpu_torch.models.vocoders import (EXTRA_NETS,
+                                                        VOCODERS, vocoder)
 
 F0_STAT_NAMES = ("src_mean", "src_std", "tgt_mean", "tgt_std")
 NETS = ("stage1", "stage2", "vocoder", "vocoder_wave")
@@ -177,11 +178,13 @@ def flax_tensors(net: nn.Module) -> dict[str, torch.Tensor]:
     """flax path under ``params/`` -> the module's tensor: ``<layer>/kernel``
     (a conv weight [out, in, k] is flax's [k, in, out], a dense weight
     [out, in] its [in, out]: the reversed axes), ``<layer>/bias``, and the
-    module's plain parameters (``flax_params``)."""
+    module's plain parameters (``flax_params``).  A layer without bias
+    has no ``bias``."""
     out = {}
     for path, layer in net.flax_layers().items():
         out[f"{path}/kernel"] = layer.weight
-        out[f"{path}/bias"] = layer.bias
+        if layer.bias is not None:
+            out[f"{path}/bias"] = layer.bias
     if hasattr(net, "flax_params"):
         out.update(net.flax_params())
     return out
@@ -345,9 +348,10 @@ def load_all_params(params: dict, cfg: Config,
     device, the caller's are left as they are.
 
     Order (later wins): cfg.params_path (full tree) -> ``params_path``
-    (full tree) -> per-stage subtree files (stage1/stage2/vocoder/
-    vocoder_wave/vocoder_hifigan, each the ``flatten_params`` layout of
-    that subtree) -> the F0 statistics ``.npz`` files (``mean``, ``std``).
+    (full tree) -> per-stage subtree files (``<net>_params_path`` for
+    stage1/stage2/vocoder/vocoder_wave and each mode's own net, each the
+    ``flatten_params`` layout of that subtree) -> the F0 statistics
+    ``.npz`` files (``mean``, ``std``).
     Every parameter file is read strictly, as ``.npz`` or flax
     ``.msgpack``."""
     device = params["f0_stats"]["src_mean"].device
@@ -356,16 +360,15 @@ def load_all_params(params: dict, cfg: Config,
         if full:
             params = {**load_params_npz(full, cfg, device), **kept}
     params = params_to(params, device)
-    if cfg.vocoder_hifigan_params_path and HIFIGAN not in params:
-        raise ValueError("vocoder_hifigan_params_path names a HiFi-GAN "
-                         "generator, and the params hold none: build them "
-                         "in the hifigan mode (init_params(..., "
-                         "vocoder_mode='hifigan'))")
-    for key, path in (("stage1", cfg.stage1_params_path),
-                      ("stage2", cfg.stage2_params_path),
-                      ("vocoder", cfg.vocoder_params_path),
-                      ("vocoder_wave", cfg.vocoder_wave_params_path),
-                      (HIFIGAN, cfg.vocoder_hifigan_params_path)):
+    for mode, voc in VOCODERS.items():
+        key = voc.net and voc.net[0]
+        if key and getattr(cfg, f"{key}_params_path") and key not in params:
+            raise ValueError(f"{key}_params_path names the {mode} mode's "
+                             f"generator, and the params hold none: build "
+                             f"them in that mode (init_params(..., "
+                             f"vocoder_mode='{mode}'))")
+    for key in NETS + EXTRA_NETS:
+        path = getattr(cfg, f"{key}_params_path")
         if path:
             load_flax(params[key], _read_params(path))
     for path, mean_key, std_key in (

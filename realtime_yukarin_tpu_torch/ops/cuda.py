@@ -49,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
@@ -230,9 +231,17 @@ ENVELOPE_CEPSTRUM_WIDE = CudaKernel(
 HIFIGAN_TAIL = CudaKernel(
     "hifigan_tail", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                      _F, _P))
+# the BigVGAN generator's pass before an activation, the anti-aliased
+# activation included (ops/bigvgan_act.py): y, r, acc, bias, alpha,
+# inv_beta, the filter, out_v, out_a, then rows, the operand's rows, its
+# row stride, the first kept row, the kept rows, C, bfloat16 or not and the
+# divisor
+BIGVGAN_ACT = CudaKernel(
+    "bigvgan_act", (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _I,
+                    _I, _I, _F, _P))
 KERNELS = (HARMONIC_BANK, POWER_SPECTRUM, ENVELOPE_CEPSTRUM,
            HARMONIC_BANK_BWD, POWER_SPECTRUM_WIDE, ENVELOPE_CEPSTRUM_WIDE,
-           HIFIGAN_TAIL)
+           HIFIGAN_TAIL, BIGVGAN_ACT)
 # the stage index, utils/profiling.py:STAGES
 STAGE_MARK = CudaKernel("stage_mark", (_I, _P))
 

@@ -239,7 +239,6 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     # vocoder nets read ctx_v more frames on each side (their conv halo):
     # Lv rows from frame s.
     ctx_v = voc.context_frames(cfg)
-    ctx_sr = cfg.super_resolution.context_frames if use_sr else 0
     c1 = cfg.acoustic.context_frames
     dtype = compute_dtype(cfg)
     Fn = geo.analysis_frames
@@ -255,8 +254,9 @@ def streaming_step(params: dict, carry: StreamCarry, chunk: torch.Tensor,
     mc_c_need = torch.cat([carry.mc_c_cache, mc_c_fresh], dim=-2)
     f0c_need = convert_f0_stats(f0_all[..., c1 + E: Fn - c1 - E],
                                 params["f0_stats"])
-    # frame s sits at needed-array index ctx_sr (= s - (c1 + 1))
-    need = slice(ctx_sr, ctx_sr + Lv)
+    # the needed arrays start at frame c1 + E, so frame s sits at SR's
+    # halo (and the frames StreamGeometry adds for a net's rows)
+    need = slice(s - c1 - E, s - c1 - E + Lv)
     f0v, mcv = f0c_need[..., need], mc_c_need[..., need, :]
     apv = ap_all[..., s: s + Lv, :]
     envv = None

@@ -13,7 +13,11 @@ arithmetic derived from the Config:
 
 (mctx also holds the vocoder net's halo, ``models/vocoders.py``; in the
 hifigan mode the generator's 21 frames take SR's 4: D is 42 frames, 85 ms
-more than the dsp mode's 25.)
+more than the dsp mode's 25.  A net whose input rows span r frames, the
+bigvgan mode's pairs, keeps its window on whole rows of the global frame
+grid: the chunk must be whole rows, and mctx takes the frames that make D
+a multiple of r, so each step's window starts on a row: in the bigvgan
+mode the generator's 68 frames and one, D 90 frames.)
 Step k consumes input chunk k and emits output frames [k*Fc - D,
 (k+1)*Fc - D).  Client rates other than the internal one go through the
 polyphase resamplers of :func:`input_plan` / :func:`output_plan` at both
@@ -92,6 +96,11 @@ class StreamGeometry:
         AH = max(dsp.fft_size // 2, (dsp.f0_frame_len + 1) // 2,
                  (dsp.voicing_energy_win + 1) // 2)
         ah_frames = -(-AH // hop)
+        r = voc.frames_per_row(cfg)
+        if Fc % r:
+            raise ValueError(f"a chunk of {Fc} frames is no whole number of "
+                             f"the vocoder's rows of {r} frames")
+        mctx += -(mctx + ah_frames) % r       # D on a row's first frame
         D = mctx + ah_frames
         p_in = input_plan(dsp, Fc * hop)
         p_out = output_plan(dsp, Fc * hop)

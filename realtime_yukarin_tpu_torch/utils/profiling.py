@@ -22,10 +22,10 @@ The program labels its own work in two ways, both on the profiler's clock:
   graph as kernel nodes, always, and every device operation between two
   markers belongs to the first one's stage.  A serving step marks
   ``SERVE_STAGES`` then ``end`` (9 markers), a training step
-  ``TRAIN_STAGES`` then ``end`` (4).  In the hifigan vocoder mode a
-  serving step marks ``vocoder``, one ``vocoder_s<i>`` per upsampling
-  stage and ``vocoder`` again (conv_post) where the others mark ``sr``
-  and ``render``: it runs no SR.  On the CPU ``mark`` does nothing.
+  ``TRAIN_STAGES`` then ``end`` (4).  In the hifigan and bigvgan vocoder
+  modes a serving step marks ``vocoder``, one ``vocoder_s<i>`` per
+  upsampling stage (four and six) and ``vocoder`` again (conv_post) where
+  the others mark ``sr`` and ``render``: they run no SR.  On the CPU ``mark`` does nothing.
 
 Usage:
     with trace("/tmp/torch-trace"):         # or serve --profile_dir ...
@@ -47,7 +47,7 @@ SERVE_STAGES = ("carry_in", "resample_in", "analysis", "stage1", "sr",
                 "render", "resample_out", "carry_out")
 TRAIN_STAGES = ("forward", "backward", "optimizer")
 VOCODER_STAGES = ("vocoder", "vocoder_s1", "vocoder_s2", "vocoder_s3",
-                  "vocoder_s4")
+                  "vocoder_s4", "vocoder_s5", "vocoder_s6")
 # the markers' indices in csrc/stage_mark.cu; "end" is stage_end
 STAGES = SERVE_STAGES + TRAIN_STAGES + VOCODER_STAGES + ("end",)
 _STAGE_INDEX = {s: i for i, s in enumerate(STAGES)}

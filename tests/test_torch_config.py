@@ -1,7 +1,7 @@
 """The port's configuration equals the JAX package's, apart from what the
-port alone has (the HiFi-GAN vocoder mode: the ``vocoder_hifigan`` section
-and ``vocoder_hifigan_params_path``), and the port imports nothing of JAX,
-flax or the JAX package."""
+port alone has (the HiFi-GAN and BigVGAN vocoder modes: the
+``vocoder_hifigan`` and ``vocoder_bigvgan`` sections and their params
+paths), and the port imports nothing of JAX, flax or the JAX package."""
 
 import ast
 import dataclasses
@@ -17,7 +17,8 @@ from realtime_yukarin_tpu_torch import config as tconfig
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "realtime_yukarin_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "realtime_yukarin_tpu")
-PORT_ONLY = ("vocoder_hifigan", "vocoder_hifigan_params_path")
+PORT_ONLY = ("vocoder_hifigan", "vocoder_hifigan_params_path",
+             "vocoder_bigvgan", "vocoder_bigvgan_params_path")
 
 
 def _jax_keys(d: dict) -> dict:

@@ -39,10 +39,12 @@ from benchmark.reference.streaming.state import StreamGeometry
 from benchmark.weights import load_into, make_weights
 from benchmark.reference.models.voice_changer import stage_nets as ref_nets
 from realtime_yukarin_tpu_torch.config import Config
+from realtime_yukarin_tpu_torch.models import vocoder_hifigan as vh
 from realtime_yukarin_tpu_torch.models.vocoder_hifigan import (
     HiFiGANGenerator, hifigan_vocode)
 from realtime_yukarin_tpu_torch.models.voice_changer import (
     flax_tensors, init_params, load_all_params, stage_nets)
+from realtime_yukarin_tpu_torch.ops import hifigan_tail as ht
 from realtime_yukarin_tpu_torch.parallel.serving import (BatchedServer,
                                                          make_batched_step,
                                                          model_stage_flops)
@@ -199,6 +201,76 @@ def test_the_cone_keeps_the_whole_windows_samples_bit_for_bit(
     F = T - 1 - 2 * out_ctx
     assert kept.shape == (1, F * hop)
     assert torch.equal(kept, whole[:, out_ctx * hop: (out_ctx + F) * hop])
+
+
+def _v1_forward(net, x, dtype, out_ctx):
+    """HiFi-GAN V1's forward written out as one sequence of plain ops, in
+    the order of the fused design: conv_pre and its leaky ReLU; per stage
+    the transposed conv, its bias and leaky ReLU, then per resblock and
+    dilation c1, its bias and leaky ReLU, c2, its bias and the residual,
+    each resblock's output added to the stage's running sum, and the sum's
+    mean and leaky ReLU (0.01 after the last stage); conv_post, its bias
+    and tanh.  Each conv is the generator's own NHWC call on its packed
+    weights, each pass ``hifigan_tail_plain``, each layer over its cone."""
+    T, D = x.shape[-2:]
+    w = net.packed(dtype)
+    (lo, hi), *cone = net.cfg.cone(T, out_ctx, net.hop)
+
+    def tail(mode, y, bias, window=None, **kw):
+        start, length = (0, None) if window is None else window
+        return ht.hifigan_tail_plain(mode, y, bias, length=length,
+                                     start=start, **kw)
+    (a,) = tail("act", vh._conv(x.reshape(-1, T, D)[:, lo: hi].to(dtype),
+                                w.pre[0]), w.pre[1],
+                (cone[0][0] - lo, cone[0][1] - cone[0][0]), slope=0.1)
+    rates = net.cfg.upsample_rates
+    n = len(net.cfg.resblock_kernel_sizes)
+    for i, u in enumerate(rates):
+        (lo, _), rows, out = cone[2 * i: 2 * i + 3]
+        h, a = tail("up", vh._conv_up(a, w.ups[i][0], u), w.ups[i][1],
+                    (rows[0] - lo * u, rows[1] - rows[0]), slope=0.1)
+        acc = None
+        for j, (layers, ds) in enumerate(zip(
+                w.blocks[i], net.cfg.resblock_dilation_sizes)):
+            x_, xa = h, a
+            for m, (d, (w1, b1, w2, b2)) in enumerate(zip(ds, layers)):
+                (t,) = tail("act", vh._conv(xa, w1, d), b1, slope=0.1)
+                v = vh._conv(t, w2)
+                if m < len(ds) - 1:
+                    x_, xa = tail("res", v, b2, r=x_, slope=0.1)
+                elif j < n - 1:
+                    (acc,) = tail("sum", v, b2, r=x_, acc=acc)
+                else:
+                    (acc,) = tail(
+                        "mean", v, b2, (out[0] - rows[0], out[1] - out[0]),
+                        r=x_, acc=acc, divisor=float(n),
+                        slope=0.01 if i + 1 == len(rates) else 0.1)
+        a = acc
+    (lo, _), keep = cone[-2:]
+    y = vh._conv(a, w.post[0])[:, keep[0] - lo: keep[1] - lo]
+    y = y.to(torch.promote_types(y.dtype, torch.float32)) + w.post[1]
+    return torch.tanh(y).reshape(*x.shape[:-2], keep[1] - keep[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("whole", [True, False], ids=["whole", "cone"])
+def test_the_generator_is_its_written_out_sequence_bit_for_bit(dtype,
+                                                                whole):
+    """The generator's forward (one skeleton with the bigvgan mode's, by
+    hooks) equals :func:`_v1_forward`, the same layers written out as one
+    plain sequence, bit for bit: no sum reordered, no pass moved, over the
+    whole window and over a streamed step's cone."""
+    cfg, prog, _, _ = _generators(SMALL)
+    h = cfg.vocoder_hifigan
+    T = cfg.streaming.chunk_frames(cfg.dsp) + 1 + 2 * h.context_frames
+    x = torch.randn((2, T, 67), generator=torch.Generator().manual_seed(8))
+    out_ctx = None if whole else h.context_frames
+    with torch.no_grad():
+        got = prog(x, dtype, None, out_ctx)
+        want = _v1_forward(prog, x, dtype, out_ctx)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(want.abs().max()) > 1e-2
+    assert torch.equal(got, want)
 
 
 def test_the_cone_at_the_published_widths():

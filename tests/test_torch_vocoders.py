@@ -84,25 +84,32 @@ def test_one_record_per_mode():
 # each mode's halo section of the config, and the carry type that
 # StreamCarry.init gave it before the registry
 SECTIONS = {"dsp": None, "ddsp": "vocoder_nn", "wave": "vocoder_wave",
-            "hifigan": "vocoder_hifigan"}
+            "hifigan": "vocoder_hifigan", "bigvgan": "vocoder_bigvgan"}
 CARRIES = {"dsp": SynthCarry, "ddsp": SynthCarry, "wave": WaveCarry,
-           "hifigan": type(None)}
+           "hifigan": type(None), "bigvgan": type(None)}
+GENERATORS = ("hifigan", "bigvgan")     # halo in rows of several frames
 
 
 @pytest.mark.parametrize("use_sr", [True, False])
 @pytest.mark.parametrize("mode", VOCODER_MODES)
 def test_a_record_halo_is_its_config_section(mode, use_sr):
+    """The halo is the section's receptive field (a generator's in whole
+    conditioning rows: two frames a row in the bigvgan mode); the model
+    halo adds to it the frames that put D on a row's first frame."""
     cfg = Config()
     voc = vocoders.vocoder(mode)
-    ctx = (getattr(cfg, SECTIONS[mode]).context_frames if SECTIONS[mode]
-           else 0)
-    assert voc.context_frames(cfg) == ctx
-    assert voc.reads_envelope == (mode != "hifigan")
+    section = getattr(cfg, SECTIONS[mode]) if SECTIONS[mode] else None
+    ctx = (0 if section is None else section.halo_frames(cfg.dsp.hop)
+           if mode in GENERATORS else section.context_frames)
+    r = voc.frames_per_row(cfg)
+    assert voc.context_frames(cfg) == ctx and ctx % r == 0
+    assert r == (2 if mode == "bigvgan" else 1)
+    assert voc.reads_envelope == (mode not in GENERATORS)
     sr = cfg.super_resolution.context_frames if (
         use_sr and voc.reads_envelope) else 0
     geo = StreamGeometry.from_config(cfg, use_sr, vocoder_mode=mode)
-    assert geo.model_ctx == (cfg.acoustic.context_frames
-                             + cfg.dsp.f0_edge_frames + sr + ctx)
+    base = (cfg.acoustic.context_frames + cfg.dsp.f0_edge_frames + sr + ctx)
+    assert 0 <= geo.model_ctx - base < r and geo.delay_frames % r == 0
 
 
 @pytest.mark.parametrize("mode", VOCODER_MODES)
